@@ -1,0 +1,61 @@
+"""`cornetto` CLI of the PyTorch port: counterpart of cornetto_tpu/cli.py.
+
+Only ``livefish`` is ported; every other subcommand of the JAX package
+exits 1 with "not yet ported to cornetto_tpu_torch".  The device is cuda
+unless CORNETTO_FORCE_CPU=1 (cornetto_tpu_torch.device)."""
+
+import sys
+
+from cornetto_tpu.utils import timing
+from cornetto_tpu.version import __version__
+from cornetto_tpu_torch.livefish.cli import NOT_PORTED
+
+# subcommands of cornetto_tpu.cli that the port does not have yet
+JAX_ONLY = (
+    "fixasm", "boringbits", "noboringbits", "telowin", "telobreaks",
+    "telofind", "minidot", "bigenough", "sdust", "fa2bed", "seq",
+    "asmstats", "nx", "report", "telocontigs", "depth", "bammerge",
+    "create-panel", "recreate-panel", "telostats", "minidotplot",
+    "hapnetto", "refine", "asmstats-pipeline", "flow", "flow-eval",
+    "flow-sv", "flow-simplex", "gfa2fa")
+
+
+def print_usage(fp) -> int:
+    fp.write("Usage: cornetto <command> [options]   (PyTorch/CUDA port)\n\n")
+    fp.write("commands:\n")
+    fp.write("       livefish        real-time adaptive-sampling decision "
+             "engine (run | index | toml)\n")
+    fp.write("\n")
+    fp.write("       --help, -h      print this help message\n")
+    fp.write("       --version, -V   print version information\n")
+    return 1 if fp is sys.stderr else 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv if argv is None else argv)
+    realtime0 = timing.realtime()
+    if len(argv) < 2:
+        return print_usage(sys.stderr)
+    cmd = argv[1]
+    rest = argv[2:]
+    if cmd == "livefish":
+        from cornetto_tpu_torch.livefish import cli as livefish_cli
+        ret = livefish_cli.main(rest)
+    elif cmd in ("--version", "-V"):
+        sys.stdout.write("cornetto-tpu %s\n" % __version__)
+        return 0
+    elif cmd in ("--help", "-h"):
+        return print_usage(sys.stdout)
+    elif cmd in JAX_ONLY:
+        sys.stderr.write("[cornetto] %s: %s\n" % (cmd, NOT_PORTED))
+        return 1
+    else:
+        sys.stderr.write("[cornetto] Unrecognised command %s\n" % cmd)
+        return print_usage(sys.stderr)
+
+    timing.print_footer(__version__, argv[1:], realtime0)
+    return ret
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,65 @@
+"""`cornetto livefish` subcommands on the PyTorch engine: counterpart of
+cornetto_tpu/livefish/cli.py.  ``run`` is ported; ``index`` and ``toml`` are
+host code and delegate to the JAX package's (JAX-free) implementations;
+``replay`` and ``cov`` are not ported yet."""
+
+import sys
+
+from cornetto_tpu.livefish import cli as host_cli
+from cornetto_tpu.utils import logging as log
+
+NOT_PORTED = "not yet ported to cornetto_tpu_torch"
+
+
+def _cmd_run(argv) -> int:
+    import getopt as _getopt
+    from cornetto_tpu.io.bed import read_bed3
+    from cornetto_tpu.livefish.index import build_panel_mask
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    from cornetto_tpu_torch.livefish.stream import stream_decisions
+    opts, args = _getopt.gnu_getopt(argv, "b:l:p:",
+                                    ["batch=", "read-len=", "panel="])
+    batch, read_len = 4096, 450
+    panel_path = None
+    for flag, val in opts:
+        if flag in ("-b", "--batch"):
+            batch = int(val)
+        elif flag in ("-l", "--read-len"):
+            read_len = int(val)
+        elif flag in ("-p", "--panel"):
+            panel_path = val
+    if len(args) != 2:
+        sys.stderr.write("Usage: cornetto livefish run <index> <reads.fastq> "
+                         "[-b batch] [-l read_len] [-p panel.bed]\n")
+        return 1
+    idx, panel, _ = host_cli._load_index_or_die(args[0])
+    if panel_path:
+        panel = build_panel_mask(idx, read_bed3(panel_path))
+    if panel is None:
+        log.die("no panel: build the index with -p or pass -p here")
+    eng = SingleChipEngine(idx, panel)
+    eng.contig_names = idx.contig_names
+    total, accepted = stream_decisions(eng, args[1], batch=batch,
+                                       read_len=read_len)
+    sys.stderr.write("reads: %d\taccepted: %d\trejected: %d\n"
+                     % (total, accepted, total - accepted))
+    return 0
+
+
+def main(argv) -> int:
+    if not argv:
+        sys.stderr.write(
+            "Usage: cornetto livefish <index|run|replay|cov|toml> ...\n")
+        return 1
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "index":
+        return host_cli._cmd_index(rest)
+    if cmd == "run":
+        return _cmd_run(rest)
+    if cmd == "toml":
+        return host_cli._cmd_toml(rest)
+    if cmd in ("replay", "cov"):
+        sys.stderr.write("livefish %s: %s\n" % (cmd, NOT_PORTED))
+        return 1
+    sys.stderr.write("Unknown livefish command %s\n" % cmd)
+    return 1
