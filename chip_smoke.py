@@ -22,16 +22,31 @@ checkout.  It:
    genomic reads and `proceed` on every junk read;
 6. decides the first two batches again on the CPU (plain versions) and
    requires byte-identical rows;
-7. prints end-to-end reads/s and the per-layer times of one batch.
+7. prints end-to-end reads/s and the per-layer times of one batch;
+8. runs `boringbits` / `noboringbits` through `cornetto_tpu_torch.cli` with
+   the four golden option sets on test_data/synth and requires output
+   byte-equal to test_data/golden and window-sum launches;
+9. at human scale: window stats of seeded uint16 depth and MQ tracks for
+   all 87 contigs on the card against the plain version, then
+   `create-panel --ranged-bedgraph` on chr1-chr3 (689 Mbp) against a
+   CORNETTO_FORCE_CPU=1 run, byte for byte;
+10. one aligner-free iteration, `cornetto_tpu_torch.cli flow` on a 32 Mbp
+   draft with coverage holes and ~430k reads (livefish cov -> create-panel
+   -> telostats -> livefish index), checking the launches and the panel,
+   then `livefish cov` on two batches on the card against the CPU.
 
-Prints a {"kernels": [...]} line, the nvidia-smi name/power line, and last
-{"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
+Phase 2 builds both kernels (extraction and window sum) in parallel and
+phase 3 holds each bit-equal to its plain PyTorch version on the card.
+Prints the panel path's numbers, a {"kernels": [...]} line, the nvidia-smi
+name/power line, and last {"ok": true, "device": {...}}.  Any failure exits
+non-zero with no result.
 """
 
 import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -39,6 +54,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, READ_LEN, K, W = 4096, 450, 15, 10
 FULL_BATCHES, TAIL = 64, 1000
+KERNELS = ("extract_minima", "window_sum")
+WIN, INC = 2500, 50                      # boringbits' default window
 
 # GRCh38 primary assembly chromosome lengths (chr1..chr22, chrX, chrY)
 GRCH38 = [248956422, 242193529, 198295559, 190214555, 181538259, 170805979,
@@ -246,17 +263,24 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernels, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from cornetto_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.load("extract_minima")
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        for fut in [ex.submit(_build.load, name) for name in KERNELS]:
+            fut.result()
     dt = time.perf_counter() - t0
-    info = _build.build_info.get("extract_minima")
-    log("[2 build] extract_minima.cu -> %s in %.2f s"
-        % (_build.library_path("extract_minima"), dt))
-    if info:
-        for line in info[1].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log("[2 build]   ptxas: %s" % line.strip())
+    for name in KERNELS:
+        info = _build.build_info.get(name)
+        log("[2 build] %s.cu -> %s (%s)"
+            % (name, _build.library_path(name),
+               "nvcc %.2f s" % info[0] if info else "cached"))
+        if info:
+            for line in info[1].splitlines():
+                if "registers" in line or "smem" in line or "spill" in line:
+                    log("[2 build]   ptxas: %s" % line.strip())
+    log("[2 build] both kernels in %.2f s" % dt)
     return dt
 
 
@@ -321,6 +345,430 @@ def phase_kernels(seed: int):
     return worst, timing
 
 
+# ---------------------------------------------------------------- panel path
+
+# (name, N, W, S, rows, dtype): chr1 at the defaults (the main path's
+# shape), the TPU kernel's stride-1 contract, odd windows, W = 1, W past
+# the JAX path's int32 limit, N < W, and an N that is a prime
+WS_CASES = [("chr1", 248_956_422, WIN, INC, 2, "uint16"),
+            ("stride1", 1 << 24, WIN, 1, 1, "int32"),
+            ("odd", 10_000_019, 999, 37, 2, "uint16"),
+            ("w1", 1_000_003, 1, 1, 2, "int32"),
+            ("w40000", 10_000_019, 40_000, INC, 2, "uint16"),
+            ("n<w", 1000, WIN, INC, 2, "uint16"),
+            ("prime", 15_485_863, WIN, INC, 2, "int32")]
+
+
+def phase_window_kernel(seed: int):
+    """Window-sum kernel vs plain on the card; returns (worst error, chr1
+    (kernel ms, plain ms))."""
+    import torch
+    from cornetto_tpu.kernels.window_sum import n_windows
+    from cornetto_tpu_torch.kernels.window_sum import (window_sums,
+                                                       window_sums_ref)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst, timing = 0, None
+    for name, n, w, s, rows, dt in WS_CASES:
+        x = torch.randint(0, 65536, (rows, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        if dt == "uint16":
+            x = x.to(torch.uint16)
+        nw = n if s == 1 else n_windows(n, w, s)
+        got = window_sums(x, w, s, nw)
+        torch.cuda.synchronize()
+        ref = window_sums_ref(x, w, s, nw)
+        err = int((got - ref).abs().max())
+        worst = max(worst, err)
+        line = ("[3 kernel] window_sum %-7s (%d, %d) %s W=%d S=%d nw=%d "
+                "max_abs_err=%d" % (name, rows, n, dt, w, s, nw, err))
+        if name == "chr1":
+            ms = cuda_ms(lambda: window_sums(x, w, s, nw), 20, warmup=3)
+            ms_ref = cuda_ms(lambda: window_sums_ref(x, w, s, nw), 5,
+                             warmup=2)
+            timing = (ms, ms_ref)
+            line += " kernel %.4f ms plain %.4f ms" % (ms, ms_ref)
+        log(line)
+        if err or not torch.equal(got, ref):
+            fail("window-sum kernel disagrees with its plain version in "
+                 "case %s" % name)
+        del x, got, ref
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
+GOLDEN_RUNS = [
+    ("boring_t1.txt", "boringbits", ["-m", "10000", "-e", "1000", "-L",
+                                     "0.6", "-Q", "0.6", "-H", "1.6"]),
+    ("fun_t2.txt", "noboringbits", ["-H", "2.5", "-L", "0.5", "-Q", "0.5",
+                                    "-m", "10000", "-e", "1000"]),
+    ("fun_default.txt", "noboringbits", []),
+    ("boring_odd.txt", "boringbits", ["-w", "999", "-i", "37", "-m",
+                                      "20000", "-e", "3000"]),
+]
+
+
+@contextlib.contextmanager
+def force_cpu():
+    """CORNETTO_FORCE_CPU=1 inside the block: the port's plain versions."""
+    old = os.environ.get("CORNETTO_FORCE_CPU")
+    os.environ["CORNETTO_FORCE_CPU"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CORNETTO_FORCE_CPU"]
+        else:
+            os.environ["CORNETTO_FORCE_CPU"] = old
+
+
+def run_cli_quiet(argv, stdout_path: str, stderr_path: str) -> None:
+    """One port CLI command in this process, stdout and stderr to files."""
+    from cornetto_tpu_torch.cli import main as cli
+    with open(stdout_path, "w") as fo, open(stderr_path, "w") as fe, \
+            contextlib.redirect_stdout(fo), contextlib.redirect_stderr(fe):
+        rc = cli(["cornetto"] + argv)
+    if rc != 0:
+        with open(stderr_path) as f:
+            tail = f.read()[-2000:]
+        fail("%s exited %d:\n%s" % (" ".join(argv[:2]), rc, tail))
+
+
+def phase_goldens(work: str):
+    """boringbits / noboringbits on the card against the C-oracle goldens."""
+    from cornetto_tpu_torch.kernels.window_sum import window_sums
+    synth = os.path.join(HERE, "test_data", "synth")
+    gold = os.path.join(HERE, "test_data", "golden")
+    for golden, cmd, extra in GOLDEN_RUNS:
+        out = os.path.join(work, golden)
+        window_sums.launches = 0
+        run_cli_quiet([cmd, os.path.join(synth, "cov-total.bg"), "-q",
+                       os.path.join(synth, "cov-mq20.bg")] + extra,
+                      out, out + ".err")
+        launches = window_sums.launches
+        with open(out, "rb") as a, open(os.path.join(gold, golden),
+                                        "rb") as b:
+            same = a.read() == b.read()
+        log("[8 goldens] %s %s: byte-equal to the golden: %s, window-sum "
+            "launches %d" % (cmd, golden, same, launches))
+        if not same or launches == 0:
+            fail("%s %s: output differs from the golden or no kernel launch"
+                 % (cmd, golden))
+
+
+def seeded_tracks(seed: int, ci: int, n: int, unit: int = 1):
+    """Piecewise-constant uint16 depth and MQ-depth tracks of one contig, in
+    ceil(n / unit) steps: runs of seeded length at ~30x with low, high,
+    zero and low-MQ stretches."""
+    import numpy as np
+    rng = np.random.default_rng([seed, 5, ci])
+    m = -(-n // unit)
+    k = max(2 * n // 100_000, 4)
+    edges = np.concatenate([[0], np.sort(rng.integers(0, m, size=k - 1)),
+                            [m]])
+    kind = rng.choice(5, size=k, p=[0.8, 0.06, 0.05, 0.04, 0.05])
+    base = rng.integers(26, 35, size=k)
+    dep = np.select([kind == 1, kind == 2, kind == 3],
+                    [base // 6, base * 3, 0], base)
+    mq = np.where(kind == 4, dep // 10,
+                  np.maximum(dep - rng.integers(0, 3, size=k), 0))
+    runs = np.diff(edges)
+    return (np.repeat(dep.astype(np.uint16), runs),
+            np.repeat(mq.astype(np.uint16), runs))
+
+
+def write_panel_inputs(path: str, seed: int, contigs) -> None:
+    """draft.fasta (single-line records), 1 kb-ranged cov-total / cov-mq20
+    tracks and a lowQ BED for contigs, under path (reused per seed)."""
+    import numpy as np
+    stamp = os.path.join(path, ".done")
+    if os.path.exists(stamp):
+        log("[9 panel] reusing %s" % path)
+        return
+    os.makedirs(path, exist_ok=True)
+    ascii_ = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(os.path.join(path, "draft.fasta"), "wb") as f:
+        for (name, _), codes in zip(contigs, genome_codes(seed, contigs)):
+            f.write(b">%s\n" % name.encode())
+            f.write(ascii_[codes].tobytes())
+            f.write(b"\n")
+    with open(os.path.join(path, "draft.cov-total.bg"), "w") as ft, \
+            open(os.path.join(path, "draft.cov-mq20.bg"), "w") as fm, \
+            open(os.path.join(path, "draft.bp.p_ctg.lowQ.bed"), "w") as fq:
+        for ci, (name, n) in enumerate(contigs):
+            d, m = seeded_tracks(seed, ci, n, unit=1000)
+            st = np.arange(len(d), dtype=np.int64) * 1000
+            en = np.minimum(st + 1000, n)
+            for f, v in ((ft, d), (fm, m)):
+                f.write("".join("%s\t%d\t%d\t%d\n" % row for row in zip(
+                    [name] * len(d), st.tolist(), en.tolist(), v.tolist())))
+            fq.write("%s\t%d\t%d\n" % (name, n // 3, n // 3 + 9000))
+    open(stamp, "w").close()
+
+
+def panel_stages(err_path: str):
+    """'panel-stage <name>: <s> s' markers of a create-panel run."""
+    out = {}
+    with open(err_path) as f:
+        for line in f:
+            if "panel-stage " in line:
+                name, rest = line.split("panel-stage ", 1)[1].split(": ", 1)
+                out[name] = float(rest.split(" s", 1)[0])
+    return out
+
+
+def create_panel(src: str, run_dir: str):
+    """`create-panel --ranged-bedgraph` through the port's CLI in run_dir on
+    links to src's inputs; returns (wall s, stage times, window-stats s)."""
+    from cornetto_tpu_torch.tools import boringbits as tbb
+    if os.path.isdir(run_dir):
+        shutil.rmtree(run_dir)
+    os.makedirs(run_dir)
+    for name in ("draft.fasta", "draft.cov-total.bg", "draft.cov-mq20.bg",
+                 "draft.bp.p_ctg.lowQ.bed"):
+        os.symlink(os.path.join(src, name), os.path.join(run_dir, name))
+    stats_s = [0.0]
+    real = tbb.window_stats
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            stats_s[0] += time.perf_counter() - t0
+    tbb.window_stats = timed
+    try:
+        with contextlib.chdir(run_dir):
+            t0 = time.perf_counter()
+            run_cli_quiet(["create-panel", "draft.fasta",
+                           "--ranged-bedgraph"], "create.out", "create.err")
+            wall = time.perf_counter() - t0
+    finally:
+        tbb.window_stats = real
+    return wall, panel_stages(os.path.join(run_dir, "create.err")), \
+        stats_s[0]
+
+
+def tree_bytes(root: str):
+    """Every file a create-panel run wrote under root, but its stderr log
+    (timings) and the input links."""
+    out = {}
+    for base, _, files in os.walk(root):
+        for name in files:
+            p = os.path.join(base, name)
+            if name != "create.err" and not os.path.islink(p):
+                with open(p, "rb") as f:
+                    out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def phase_human_panel(seed: int, work: str, contigs):
+    """Window stats at human scale on the card against the plain version,
+    then create-panel on chr1-chr3 on the card against the CPU."""
+    import numpy as np
+    import torch
+    from cornetto_tpu_torch.kernels.window_sum import (window_stats,
+                                                       window_sums,
+                                                       window_sums_ref)
+    numbers = {}
+    worst = 0
+    n_win = 0
+    stats_s = 0.0
+    window_sums.launches = 0
+    for ci, (name, n) in enumerate(contigs):
+        d, m = seeded_tracks(seed, ci, n)
+        t0 = time.perf_counter()
+        st, end, dd, mm = window_stats(d, m, WIN, INC)
+        stats_s += time.perf_counter() - t0
+        n_win += len(st)
+        x = torch.from_numpy(np.stack([d, m])).cuda()
+        div = torch.from_numpy(np.maximum(end.astype(np.int64) - st, 1))
+        ref = torch.div(window_sums_ref(x, WIN, INC, len(st)), div.cuda(),
+                        rounding_mode="floor").cpu().numpy()
+        err = int(max(np.abs(dd.astype(np.int64) - ref[0]).max(),
+                      np.abs(mm.astype(np.int64) - ref[1]).max()))
+        worst = max(worst, err)
+        if err:
+            fail("window stats of %s differ from the plain version" % name)
+        del x, ref
+    launches = window_sums.launches
+    numbers["human_windows_per_s"] = n_win / stats_s
+    log("[9 panel] window stats of %d contigs (%d bp, %d windows of %d/%d) "
+        "on the card in %.3f s = %.0f windows/s (H2D of both uint16 tracks, "
+        "kernel, division and readback); %d window-sum launches; equal to "
+        "the plain version: max_abs_err %d"
+        % (len(contigs), sum(n for _, n in contigs), n_win, WIN, INC,
+           stats_s, n_win / stats_s, launches, worst))
+    if launches != len(contigs):
+        fail("%d window-sum launches for %d contigs"
+             % (launches, len(contigs)))
+    torch.cuda.empty_cache()
+
+    cut = contigs[:3]                            # chr1-chr3, see PERF.md
+    src = os.path.join(work, "panel_s%d" % seed)
+    t0 = time.perf_counter()
+    write_panel_inputs(src, seed, cut)
+    log("[9 panel] create-panel inputs: %d contigs, %d bp, 1 kb-ranged "
+        "tracks, ready in %.1f s" % (len(cut), sum(n for _, n in cut),
+                                    time.perf_counter() - t0))
+    window_sums.launches = 0
+    wall, stages, ws_s = create_panel(src, os.path.join(work, "panel_card"))
+    launches = window_sums.launches
+    with force_cpu():
+        cpu_wall, _, cpu_ws = create_panel(src, os.path.join(work,
+                                                             "panel_cpu"))
+    card_tree = tree_bytes(os.path.join(work, "panel_card"))
+    same = card_tree == tree_bytes(os.path.join(work, "panel_cpu"))
+    with open(os.path.join(work, "panel_card", "draft.boringbits.bed")) as f:
+        panel_bp = sum(int(r.split("\t")[2]) - int(r.split("\t")[1])
+                       for r in f)
+    numbers["create_panel"] = dict(
+        wall=wall, assembly_bed=stages.get("assembly-bed", 0.0),
+        parse=stages.get("fun-windows", 0.0) - ws_s, stats=ws_s,
+        chain=stages.get("interval-chain", 0.0),
+        bigenough=stages.get("bigenough", 0.0))
+    log("[9 panel] create-panel --ranged-bedgraph on chr1-chr3: card %.2f s "
+        "(window-sum launches %d), CPU plain %.2f s (window stats %.2f s); "
+        "%d files byte-identical: %s; panel %d bp"
+        % (wall, launches, cpu_wall, cpu_ws, len(card_tree), same,
+           panel_bp))
+    if not same or launches != len(cut) or not panel_bp:
+        fail("create-panel on the card differs from the CPU run, launched "
+             "%d times for %d contigs, or wrote an empty panel"
+             % (launches, len(cut)))
+    return worst, numbers
+
+
+ITER_CONTIGS = [("it%d" % i, 4_500_000) for i in range(7)] + \
+    [("it7", 500_000)]
+HOLE = 100_000
+
+
+def write_iteration_inputs(path: str, seed: int):
+    """A 32 Mbp draft (7 x 4.5 Mb + 500 kb) with one seeded 100 kb coverage
+    hole per long contig and ~6x reads of 450 bases avoiding the holes.
+    Returns (fasta, fastq, n_reads, holes)."""
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng([seed, 6])
+    codes = [np.random.default_rng([seed, 7, i]).integers(
+        0, 4, size=n, dtype=np.uint8) for i, (_, n) in enumerate(ITER_CONTIGS)]
+    holes = {name: int(rng.integers(1_000_000, n - 1_000_000))
+             for name, n in ITER_CONTIGS if n >= 1_000_000}
+    ascii_ = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fasta = os.path.join(path, "draft.fasta")
+    with open(fasta, "wb") as f:
+        for (name, _), c in zip(ITER_CONTIGS, codes):
+            f.write(b">%s\n%s\n" % (name.encode(), ascii_[c].tobytes()))
+    open(os.path.join(path, "draft.bp.p_ctg.lowQ.bed"), "w").close()
+    lens = np.array([n for _, n in ITER_CONTIGS], dtype=np.int64)
+    n_reads = int(lens.sum() * 6 // READ_LEN)
+    ctg = rng.choice(len(ITER_CONTIGS), size=n_reads, p=lens / lens.sum())
+    start = np.zeros(n_reads, dtype=np.int64)
+    bad = np.ones(n_reads, dtype=bool)
+    while bad.any():                     # redraw reads that touch a hole
+        start[bad] = (rng.random(int(bad.sum()))
+                      * (lens[ctg[bad]] - READ_LEN + 1)).astype(np.int64)
+        h = np.array([holes.get(name, -2 * HOLE)
+                      for name, _ in ITER_CONTIGS])[ctg]
+        bad = (start > h - READ_LEN) & (start < h + HOLE)
+    fq = os.path.join(path, "reads.fq")
+    offs = np.arange(READ_LEN)
+    qual = b"I" * READ_LEN
+    with open(fq, "wb") as f:
+        for ci in range(len(ITER_CONTIGS)):
+            idx = np.flatnonzero(ctg == ci)
+            text = ascii_[codes[ci][start[idx, None] + offs]]
+            f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, t.tobytes(), qual)
+                             for i, t in zip(idx.tolist(), text)))
+    return fasta, fq, n_reads, holes
+
+
+def phase_iteration(seed: int, work: str):
+    """One aligner-free iteration through `cornetto_tpu_torch.cli flow`."""
+    import torch
+    from cornetto_tpu_torch.kernels.extract import extract_minima
+    from cornetto_tpu_torch.kernels.window_sum import window_sums
+    path = os.path.join(work, "iter_s%d" % seed)
+    t0 = time.perf_counter()
+    fasta, fq, n_reads, holes = write_iteration_inputs(path, seed)
+    log("[10 iteration] draft %d contigs, %d bp, %d reads of %d written in "
+        "%.1f s" % (len(ITER_CONTIGS), sum(n for _, n in ITER_CONTIGS),
+                    n_reads, READ_LEN, time.perf_counter() - t0))
+    wd = os.path.join(path, "wd")
+    if os.path.isdir(wd):
+        shutil.rmtree(wd)
+    cfg = os.path.join(path, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"aligner_free": True}, f)
+    extract_minima.launches = 0
+    window_sums.launches = 0
+    t0 = time.perf_counter()
+    run_cli_quiet(["flow", wd, fasta, fq, "--config", cfg],
+                  os.path.join(path, "flow.out"), os.path.join(path,
+                                                               "flow.err"))
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    ext, ws = extract_minima.launches, window_sums.launches
+    n_batches = -(-n_reads // BATCH)
+    with open(os.path.join(wd, ".flow.iteration.json")) as f:
+        secs = {k: v["secs"] for k, v in json.load(f)["done"].items()}
+    rows = []
+    with open(os.path.join(wd, "draft.boringbits.bed")) as f:
+        for line in f:
+            c, s, e = line.split("\t")[:3]
+            rows.append((c, int(s), int(e)))
+    lens = dict(ITER_CONTIGS)
+    short_rows = [r for r in rows if lens[r[0]] < 800_000]
+    in_holes = [r for r in rows if r[0] in holes and
+                r[2] > holes[r[0]] - 40_000 and
+                r[1] < holes[r[0]] + HOLE + 40_000]
+    npz = os.path.exists(os.path.join(wd, "draft.livefish.npz"))
+    log("[10 iteration] flow in %.2f s (steps %s); extraction launches %d "
+        "for %d cov batches; window-sum launches %d; panel %d rows, %d bp, "
+        "%d on contigs < 800 kb, %d within 40 kb of a hole; "
+        "draft.livefish.npz written: %s"
+        % (flow_s, secs, ext, n_batches, ws, len(rows),
+           sum(e - s for _, s, e in rows), len(short_rows), len(in_holes),
+           npz))
+    if ext != n_batches or ws == 0 or not rows or short_rows or in_holes \
+            or not npz:
+        fail("the iteration's launches or panel are wrong")
+
+    # livefish cov on the first two batches: card against CPU
+    head = os.path.join(path, "head.fq")
+    with open(fq, "rb") as src, open(head, "wb") as dst:
+        for _ in range(2 * BATCH * 4):
+            dst.write(src.readline())
+    idx = os.path.join(wd, "draft.livefish")
+    outs = {}
+    for dev in ("card", "cpu"):
+        pre = os.path.join(path, "head_" + dev)
+        with force_cpu() if dev == "cpu" else contextlib.nullcontext():
+            run_cli_quiet(["livefish", "cov", idx, head, "-o", pre],
+                          pre + ".out", pre + ".err")
+        outs[dev] = []
+        for suffix in (".cov-total.bg", ".cov-mq20.bg"):
+            with open(pre + suffix, "rb") as f:
+                outs[dev].append(f.read())
+    same = outs["card"] == outs["cpu"]
+    log("[10 iteration] livefish cov of %d reads: card and CPU bedgraphs "
+        "byte-identical: %s" % (2 * BATCH, same))
+    if not same:
+        fail("livefish cov bedgraphs differ between the card and the CPU")
+
+    # livefish cov over all the reads, index already built
+    pre = os.path.join(path, "all")
+    t0 = time.perf_counter()
+    run_cli_quiet(["livefish", "cov", idx, fq, "-o", pre], pre + ".out",
+                  pre + ".err")
+    torch.cuda.synchronize()
+    cov_s = time.perf_counter() - t0
+    return ws, {"flow_s": flow_s, "flow_steps": secs,
+                "cov_reads_per_s": n_reads / cov_s, "cov_s": cov_s,
+                "n_reads": n_reads}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -337,6 +785,7 @@ def main():
     card = phase_device()
     phase_build()
     max_err, ktimes = phase_kernels(args.seed)
+    ws_err, ws_times = phase_window_kernel(args.seed)
 
     from cornetto_tpu.dist.checkpoint import load_index
     from cornetto_tpu.native.fastq_pack import iter_packed_batches
@@ -468,13 +917,41 @@ def main():
         "plain extraction %.4f ms; H2D packed %.4f ms; D2H fused %.4f ms "
         "(%s)" % (ms_step, ms_ext, ms_step - ms_ext, ms_step_ref, ms_h2d,
                   ms_d2h, card))
+    del eng, state, idx, panel
+    torch.cuda.empty_cache()
+
+    # [8]-[10] the panel path
+    phase_goldens(work)
+    hp_err, hp = phase_human_panel(args.seed, work, contigs)
+    ws_launches, it = phase_iteration(args.seed, work)
+    log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
+        "W=%d S=%d: %.4f ms, plain %.4f ms (%s)"
+        % (WIN, INC, ws_times[0], ws_times[1], card))
+    log("[7 numbers] human-scale window stats, 87 contigs: %.0f windows/s "
+        "(%s)" % (hp["human_windows_per_s"], card))
+    log("[7 numbers] create-panel --ranged-bedgraph, chr1-chr3 on the card: "
+        "%(wall).2f s wall = assembly bed %(assembly_bed).2f + fun windows "
+        "(parse+thresholds %(parse).2f, window stats %(stats).2f) + "
+        "interval chain %(chain).2f + bigenough %(bigenough).2f (%(card)s)"
+        % dict(hp["create_panel"], card=card))
+    log("[7 numbers] livefish cov: %d reads in %.2f s = %.0f reads/s "
+        "(32 Mbp index load included; %s)"
+        % (it["n_reads"], it["cov_s"], it["cov_reads_per_s"], card))
+    log("[7 numbers] aligner-free iteration: flow %.2f s, steps %s (%s)"
+        % (it["flow_s"], it["flow_steps"], card))
+
     ms, plain_ms = ktimes["nfree"]
-    print(json.dumps({"kernels": [{
-        "name": "extract_minima", "route": "cuda",
-        "source": "cornetto_tpu_torch/csrc/extract_minima.cu",
-        "replaces": "cornetto_tpu/kernels/pallas_extract.py:161",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "extract_minima", "route": "cuda",
+         "source": "cornetto_tpu_torch/csrc/extract_minima.cu",
+         "replaces": "cornetto_tpu/kernels/pallas_extract.py:161",
+         "launches": launches, "max_abs_err": max_err,
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "window_sum", "route": "cuda",
+         "source": "cornetto_tpu_torch/csrc/window_sum.cu",
+         "replaces": "cornetto_tpu/kernels/pallas_window.py:37",
+         "launches": ws_launches, "max_abs_err": max(ws_err, hp_err),
+         "ms": ws_times[0], "plain_ms": ws_times[1]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

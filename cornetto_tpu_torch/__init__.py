@@ -7,9 +7,15 @@ written by hand for NVIDIA Hopper, and imports the JAX-free host layers
 unchanged.  It never imports ``jax``.
 
 - ``device``    explicit device choice (``CORNETTO_FORCE_CPU=1`` pins the CPU)
-- ``kernels``   minimizer math and the CUDA minimizer-extraction kernel
-- ``livefish``  the adaptive-sampling decision engine and streaming loop
-- ``cli``       ``python -m cornetto_tpu_torch.cli livefish run ...``
+- ``kernels``   minimizer math, the CUDA minimizer-extraction kernel and
+                the CUDA window-sum kernel with the window depth statistics
+- ``livefish``  the adaptive-sampling decision engine, streaming loop and
+                aligner-free coverage tally
+- ``tools``     boringbits / noboringbits (window scan on the device)
+- ``pipelines`` create-panel
+- ``flow``      the iteration orchestrator with the port's device steps
+- ``cli``       ``python -m cornetto_tpu_torch.cli livefish run ...``,
+                ``... noboringbits``, ``... create-panel``, ``... flow``
 """
 
 from cornetto_tpu.version import __version__

@@ -1,8 +1,9 @@
 """`cornetto` CLI of the PyTorch port: counterpart of cornetto_tpu/cli.py.
 
-Only ``livefish`` is ported; every other subcommand of the JAX package
-exits 1 with "not yet ported to cornetto_tpu_torch".  The device is cuda
-unless CORNETTO_FORCE_CPU=1 (cornetto_tpu_torch.device)."""
+Ported: ``livefish`` (run | index | toml | cov), ``boringbits``,
+``noboringbits``, ``create-panel`` and ``flow``; every other subcommand of
+the JAX package exits 1 with "not yet ported to cornetto_tpu_torch".  The
+device is cuda unless CORNETTO_FORCE_CPU=1 (cornetto_tpu_torch.device)."""
 
 import sys
 
@@ -12,19 +13,26 @@ from cornetto_tpu_torch.livefish.cli import NOT_PORTED
 
 # subcommands of cornetto_tpu.cli that the port does not have yet
 JAX_ONLY = (
-    "fixasm", "boringbits", "noboringbits", "telowin", "telobreaks",
-    "telofind", "minidot", "bigenough", "sdust", "fa2bed", "seq",
-    "asmstats", "nx", "report", "telocontigs", "depth", "bammerge",
-    "create-panel", "recreate-panel", "telostats", "minidotplot",
-    "hapnetto", "refine", "asmstats-pipeline", "flow", "flow-eval",
+    "fixasm", "telowin", "telobreaks", "telofind", "minidot",
+    "bigenough", "sdust", "fa2bed", "seq", "asmstats", "nx", "report",
+    "telocontigs", "depth", "bammerge", "recreate-panel", "telostats",
+    "minidotplot", "hapnetto", "refine", "asmstats-pipeline", "flow-eval",
     "flow-sv", "flow-simplex", "gfa2fa")
 
 
 def print_usage(fp) -> int:
     fp.write("Usage: cornetto <command> [options]   (PyTorch/CUDA port)\n\n")
     fp.write("commands:\n")
+    fp.write("   create panel:\n")
+    fp.write("       noboringbits    print no boring bits in an assembly\n")
+    fp.write("       boringbits      print boring bits in an assembly\n")
+    fp.write("   pipelines:\n")
+    fp.write("       create-panel    create-cornetto pipeline "
+             "(fa2bed+noboringbits+intervals+bigenough)\n")
     fp.write("       livefish        real-time adaptive-sampling decision "
-             "engine (run | index | toml)\n")
+             "engine (run | index | toml | cov)\n")
+    fp.write("       flow            one-iteration orchestrator "
+             "(align/cov+panel+telostats+index)\n")
     fp.write("\n")
     fp.write("       --help, -h      print this help message\n")
     fp.write("       --version, -V   print version information\n")
@@ -38,7 +46,16 @@ def main(argv=None) -> int:
         return print_usage(sys.stderr)
     cmd = argv[1]
     rest = argv[2:]
-    if cmd == "livefish":
+    if cmd in ("boringbits", "noboringbits"):
+        from cornetto_tpu_torch.tools import boringbits
+        ret = boringbits.main(rest, boring=cmd == "boringbits")
+    elif cmd == "create-panel":
+        from cornetto_tpu_torch.pipelines import create_cornetto
+        ret = create_cornetto.main(rest)
+    elif cmd == "flow":
+        from cornetto_tpu_torch.flow import runner
+        ret = runner.main(rest)
+    elif cmd == "livefish":
         from cornetto_tpu_torch.livefish import cli as livefish_cli
         ret = livefish_cli.main(rest)
     elif cmd in ("--version", "-V"):

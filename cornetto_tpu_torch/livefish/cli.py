@@ -1,9 +1,11 @@
 """`cornetto livefish` subcommands on the PyTorch engine: counterpart of
 cornetto_tpu/livefish/cli.py.  ``run`` is ported; ``index`` and ``toml`` are
 host code and delegate to the JAX package's (JAX-free) implementations;
-``replay`` and ``cov`` are not ported yet."""
+``cov`` runs the port's coverage tally; ``replay`` is not ported yet."""
 
 import sys
+
+import numpy as np
 
 from cornetto_tpu.livefish import cli as host_cli
 from cornetto_tpu.utils import logging as log
@@ -46,6 +48,55 @@ def _cmd_run(argv) -> int:
     return 0
 
 
+def _cmd_cov(argv) -> int:
+    """Aligner-free coverage tracks: estimate cov-total / cov-mq20
+    bedgraphs from livefish index hits while deciding, replacing the
+    protocol's minimap2 + samtools realignment step (reference:
+    shitflow/create-launch.pbs.sh:61-67) for iteration panels."""
+    import getopt as _getopt
+    from cornetto_tpu_torch.livefish.coverage import (CoverageParams,
+                                                      CoverageTally,
+                                                      stream_coverage)
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    opts, args = _getopt.gnu_getopt(
+        argv, "o:b:l:s:q:", ["output=", "batch=", "read-len=", "bin=",
+                             "hq-hits="])
+    prefix = "livefish"
+    batch, read_len = 4096, 450
+    bin_size, hq_hits = 1000, 8
+    for flag, val in opts:
+        if flag in ("-o", "--output"):
+            prefix = val
+        elif flag in ("-b", "--batch"):
+            batch = int(val)
+        elif flag in ("-l", "--read-len"):
+            read_len = int(val)
+        elif flag in ("-s", "--bin"):
+            bin_size = int(val)
+        elif flag in ("-q", "--hq-hits"):
+            hq_hits = int(val)
+    if len(args) != 2:
+        sys.stderr.write("Usage: cornetto livefish cov <index> "
+                         "<reads.fastq> [-o prefix] [-b batch] [-l read_len] "
+                         "[-s bin] [-q hq_hits]\n")
+        return 1
+    idx, panel, _ = host_cli._load_index_or_die(args[0])
+    if panel is None:
+        # coverage needs decisions but no reject panel: accept everything
+        panel = np.zeros((len(idx.contig_names), 128), dtype=bool)
+    eng = SingleChipEngine(idx, panel)
+    tally = CoverageTally(idx, CoverageParams(bin_size=bin_size,
+                                              hq_hits=hq_hits))
+    total, accepted = stream_coverage(eng, tally, args[1], batch=batch,
+                                      read_len=read_len)
+    tot_p = prefix + ".cov-total.bg"
+    mq_p = prefix + ".cov-mq20.bg"
+    tally.write_bedgraphs(tot_p, mq_p)
+    sys.stderr.write("reads: %d\tmapped tracks -> %s, %s\n"
+                     % (total, tot_p, mq_p))
+    return 0
+
+
 def main(argv) -> int:
     if not argv:
         sys.stderr.write(
@@ -56,9 +107,11 @@ def main(argv) -> int:
         return host_cli._cmd_index(rest)
     if cmd == "run":
         return _cmd_run(rest)
+    if cmd == "cov":
+        return _cmd_cov(rest)
     if cmd == "toml":
         return host_cli._cmd_toml(rest)
-    if cmd in ("replay", "cov"):
+    if cmd == "replay":
         sys.stderr.write("livefish %s: %s\n" % (cmd, NOT_PORTED))
         return 1
     sys.stderr.write("Unknown livefish command %s\n" % cmd)

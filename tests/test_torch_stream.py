@@ -151,8 +151,8 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [["livefish", "replay", "i", "r"],
-                                  ["livefish", "cov", "i", "r"],
-                                  ["noboringbits", "x.bg"],
+                                  ["sdust", "x.fa"],
+                                  ["recreate-panel", "x.fa"],
                                   ["telofind", "x.fa"]])
 def test_unported_commands_exit_1(argv, capsys):
     assert torch_cli.main(["cornetto"] + argv) == 1
