@@ -33,11 +33,26 @@ checkout.  It:
 10. one aligner-free iteration, `cornetto_tpu_torch.cli flow` on a 32 Mbp
    draft with coverage holes and ~430k reads (livefish cov -> create-panel
    -> telostats -> livefish index), checking the launches and the panel,
-   then `livefish cov` on two batches on the card against the CPU.
+   then `livefish cov` on two batches on the card against the CPU;
+11. writes the annotation draft of phase 13 (reused per seed) and holds
+   the SDUST, telomere-mask and run-stats kernels equal to their plain
+   versions on the card (SDUST on seeded mixed chunks at core 512 and at
+   the main path's shape, core 2048, on chunks of the draft's 20 Mb slice
+   plus overflow rows; chr1's length as one row; read batches with
+   telomeric arrays and the doubling-cap cases), and times both;
+12. runs the annotation goldens (sdust, telofind on the device backends,
+   telowin, telobreaks) through `cornetto_tpu_torch.cli` on the card,
+   byte-equal to test_data/golden;
+13. the annotation chain at human scale: chr1-chr3 (689 Mbp) with seeded
+   satellites, telomere arrays and N gaps through `sdust --backend device`
+   and `telofind --backend device`, then `telowin` and `telobreaks` on
+   their outputs and read tagging with the run-stats kernel; a second sdust
+   run gives the per-part split; telofind byte-equal to its host backend
+   on the whole cut, sdust on a 20 Mb slice.
 
-Phase 2 builds both kernels (extraction and window sum) in parallel and
-phase 3 holds each bit-equal to its plain PyTorch version on the card.
-Prints the panel path's numbers, a {"kernels": [...]} line, the nvidia-smi
+Phase 2 builds the four kernel sources in parallel; phases 3 and 11 hold
+each kernel bit-equal to its plain PyTorch version on the card.  Prints the
+numbers, each phase's seconds, a {"kernels": [...]} line, the nvidia-smi
 name/power line, and last {"ok": true, "device": {...}}.  Any failure exits
 non-zero with no result.
 """
@@ -54,7 +69,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, READ_LEN, K, W = 4096, 450, 15, 10
 FULL_BATCHES, TAIL = 64, 1000
-KERNELS = ("extract_minima", "window_sum")
+KERNELS = ("extract_minima", "window_sum", "sdust", "telo")
 WIN, INC = 2500, 50                      # boringbits' default window
 
 # GRCh38 primary assembly chromosome lengths (chr1..chr22, chrX, chrY)
@@ -263,7 +278,7 @@ def phase_device():
 
 
 def phase_build():
-    """Both kernels, one nvcc each, started together."""
+    """Every kernel, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from cornetto_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -280,7 +295,7 @@ def phase_build():
             for line in info[1].splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log("[2 build]   ptxas: %s" % line.strip())
-    log("[2 build] both kernels in %.2f s" % dt)
+    log("[2 build] all %d kernels in %.2f s" % (len(KERNELS), dt))
     return dt
 
 
@@ -769,6 +784,501 @@ def phase_iteration(seed: int, work: str):
                 "n_reads": n_reads}
 
 
+# ---------------------------------------------------------------- annotation
+
+TTAGGG, CCCTAA = (3, 3, 0, 2, 2, 2), (1, 1, 1, 3, 0, 0)
+SLICE = 20_000_000                       # chr1's head, checked on the host
+# (start, unit, length) written into chr1's first 20 Mb: one satellite of
+# each period 1-6, the contig-start and an interstitial telomere, a
+# telomere inside a satellite (a telobreaks hit) and three N gaps
+SLICE_FEATURES = [(0, "CCCTAA", 9_000), (2_000_000, "A", 3_000),
+                  (3_000_000, "AT", 5_000), (4_000_000, "ATT", 8_000),
+                  (5_000_000, "AATG", 12_000), (6_000_000, "ATTCC", 20_000),
+                  (7_000_000, "GGAATC", 30_000), (9_000_000, "TTAGGG", 3_000),
+                  (10_000_000, "ATTCC", 10_000),
+                  (10_004_000, "TTAGGG", 2_000), (13_000_000, "N", 100),
+                  (15_000_000, "N", 5_000), (17_000_000, "N", 50_000)]
+SAT_UNITS = ["A", "AT", "ATT", "AATG", "ATTCC", "GGAATC"]
+
+
+def _tile(unit: str, n: int):
+    import numpy as np
+    return np.frombuffer((unit * (n // len(unit) + 1))[:n].encode(),
+                         dtype=np.uint8)
+
+
+def write_annotation_draft(path: str, seed: int, contigs):
+    """draft.fasta: contigs (chr1-chr3) of seeded random sequence with
+    ~1% of bases in short-period satellite arrays (periods 1-6, 1-50 kb),
+    (CCCTAA)n / (TTAGGG)n arrays of 5-15 kb at the contig ends and three
+    interstitial ones of 1-3 kb, and twenty N gaps of 100-50,000 bp per
+    contig; chr1's first 20 Mb holds SLICE_FEATURES and no seeded feature,
+    and is also written alone to slice.fasta.  Reused per seed.  Returns
+    (draft, slice) paths and the feature counts."""
+    import numpy as np
+    draft = os.path.join(path, "draft.fasta")
+    slice_fa = os.path.join(path, "slice.fasta")
+    stamp = os.path.join(path, ".done")
+    counts_path = os.path.join(path, "counts.json")
+    if os.path.exists(stamp):
+        with open(counts_path) as f:
+            return draft, slice_fa, json.load(f)
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng([seed, 8])
+    ascii_ = np.frombuffer(b"ACGT", dtype=np.uint8)
+    counts = dict(sat_arrays=0, sat_bp=0, telo_arrays=0, telo_bp=0, gaps=0,
+                  gap_bp=0)
+
+    def put(text, s, unit, n):
+        n = min(n, len(text) - s)
+        text[s:s + n] = _tile(unit, n)
+        kind = ("gap" if unit == "N" else "telo" if unit in
+                ("TTAGGG", "CCCTAA") else "sat")
+        counts[kind + ("s" if kind == "gap" else "_arrays")] += 1
+        counts[kind + "_bp"] += n
+
+    with open(draft, "wb") as f:
+        for i, (name, n) in enumerate(contigs):
+            text = ascii_[np.random.default_rng([seed, 2, i]).integers(
+                0, 4, size=n, dtype=np.uint8)]
+            lo = SLICE + 1_000_000 if i == 0 else 1_000_000
+            feats = [(int(rng.integers(lo, n - 1_000_000)), unit, int(ln))
+                     for unit, ln in zip(
+                         rng.choice(["TTAGGG", "CCCTAA"], 3),
+                         rng.integers(1_000, 3_001, 3))]
+            feats += [(0, "CCCTAA", int(rng.integers(5_000, 15_001)))]
+            end = int(rng.integers(5_000, 15_001))
+            feats += [(n - end, "TTAGGG", end)]
+            feats += [(int(rng.integers(lo, n - 1_000_000)), "N",
+                       int(np.exp(rng.uniform(np.log(100), np.log(50_000)))))
+                      for _ in range(20)]
+            if i == 0:
+                feats = [f for f in feats if f[0] >= SLICE] + SLICE_FEATURES
+            sat = []
+            bp = 0
+            while bp < n // 100:
+                p = int(rng.integers(1, 7))
+                unit = SAT_UNITS[p - 1] if rng.random() < 0.5 else \
+                    "".join("ACGT"[j] for j in rng.integers(0, 4, p))
+                ln = int(np.exp(rng.uniform(np.log(1_000), np.log(50_000))))
+                sat.append((int(rng.integers(lo, n - 1_000_000)), unit, ln))
+                bp += ln
+            # satellites first, then telomeres, then gaps on top
+            for s, unit, ln in sat + sorted(
+                    feats, key=lambda x: (x[1] == "N", x[0])):
+                put(text, s, unit, ln)
+            f.write(b">%s\n" % name.encode())
+            f.write(text.tobytes())
+            f.write(b"\n")
+            if i == 0:
+                with open(slice_fa, "wb") as fs:
+                    fs.write(b">%s_head\n%s\n" % (name.encode(),
+                                                   text[:SLICE].tobytes()))
+            del text
+    with open(counts_path, "w") as f:
+        json.dump(counts, f)
+    open(stamp, "w").close()
+    return draft, slice_fa, counts
+
+
+def _sdust_rows(seed: int, n: int, clen: int):
+    """Seeded chunks of every kind: random, short-period repeats,
+    homopolymers, interior Ns, separated homopolymer bursts (overflow
+    rows), leading N runs, 70% poly-A."""
+    import numpy as np
+    rng = np.random.default_rng([seed, 9, clen])
+    rows = rng.integers(0, 4, size=(n, clen)).astype(np.uint8)
+    for r in range(n):
+        kind = r % 7
+        if kind == 1:
+            rows[r] = np.tile(rng.integers(0, 4, rng.integers(1, 7)),
+                              clen)[:clen]
+        elif kind == 2:
+            rows[r] = rng.integers(0, 4)
+        elif kind == 3:
+            rows[r, rng.integers(0, clen, 6)] = 4
+        elif kind == 4:
+            for j, s in enumerate(range(0, clen - 10, 20)):
+                rows[r, s:s + 8] = j % 4
+        elif kind == 5:
+            rows[r, :rng.integers(0, clen)] = 4
+        elif kind == 6:
+            rows[r] = np.where(rng.random(clen) < 0.7, rows[r], 0)
+    return rows
+
+
+def _telo_reads(seed: int, B: int, L: int):
+    """(B, L) codes 0-4 (1% N) in which a tenth of the reads carry a
+    TTAGGG or CCCTAA array of 1..L/6 copies at the start, the middle or the
+    end."""
+    import numpy as np
+    rng = np.random.default_rng([seed, 10, B, L])
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.01] = 4
+    for r in np.flatnonzero(rng.random(B) < 0.1) if L >= 6 else []:
+        motif = TTAGGG if rng.random() < 0.5 else CCCTAA
+        c = int(rng.integers(1, L // 6 + 1))
+        s = [0, (L - 6 * c) // 2, L - 6 * c][int(rng.integers(0, 3))]
+        codes[r, s:s + 6 * c] = np.tile(np.array(motif, np.uint8), c)
+    return codes
+
+
+def timed_ms(fn):
+    """(fn(), its time in ms by CUDA events, synchronised)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _slice_rows(seed: int, slice_fa: str, W: int, core: int):
+    """Rows at the main path's shape, as sdust_device lays them out (one
+    padded sequence, row offsets into it): the slice's chunks that hold a
+    planted feature or an N, random chunks of the slice up to 320, and 64
+    seeded rows of every kind after it (the homopolymer bursts overflow).
+    Returns (codes, row offsets, clen, number of feature chunks)."""
+    import numpy as np
+    from cornetto_tpu.io.fasta import read_fastx
+    from cornetto_tpu.kernels.sdust_core import _NT4
+    from cornetto_tpu_torch.kernels.sdust import plan_rows
+    seq = next(read_fastx(slice_fa)).seq.encode("latin-1")
+    chunks, _host, padded, a, clen = plan_rows(
+        _NT4[np.frombuffer(seq, dtype=np.uint8)], W, core)
+    feats = [(s, s + ln) for s, _u, ln in SLICE_FEATURES]
+    near = {r for r, (_a, _b, c0, stop) in enumerate(chunks)
+            if any(c0 < hi and stop > lo for lo, hi in feats)}
+    rng = np.random.default_rng([seed, 12])
+    rest = np.setdiff1d(np.arange(len(chunks)), sorted(near))
+    pick = sorted(near) + sorted(rng.choice(rest, max(320 - len(near), 0),
+                                            replace=False).tolist())
+    synth = _sdust_rows(seed, 64, clen)
+    codes = np.concatenate([padded, synth.reshape(-1)])
+    off = np.concatenate([a[pick], len(padded) + np.arange(64) * clen])
+    return codes, off, clen, len(near)
+
+
+def _check_sdust(label, codes, off, clen):
+    """sdust_dp against sdust_dp_ref on the card: (max_abs_err, ms,
+    plain_ms); fails on any difference."""
+    import torch
+    from cornetto_tpu_torch.kernels.sdust import (max_intervals, sdust_dp,
+                                                  sdust_dp_ref)
+    got = sdust_dp(codes, off, clen)
+    ref, plain_ms = timed_ms(lambda: sdust_dp_ref(codes, off, clen))
+    err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+    ms = cuda_ms(lambda: sdust_dp(codes, off, clen), 20, warmup=3)
+    maxi = max_intervals(clen)
+    n_over = int((got[2] >= maxi).sum())
+    log("[11 annotation kernels] sdust %s (%d rows x %d codes, MAXI %d): "
+        "max_abs_err=%d (starts, finishes, counts), %d overflow rows, %d "
+        "intervals; kernel %.4f ms plain %.1f ms"
+        % (label, len(off), clen, maxi, err, n_over,
+           int(got[2].clamp(max=maxi).sum()), ms, plain_ms))
+    if err or not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        fail("sdust kernel disagrees with its plain version (%s)" % label)
+    if not n_over:
+        fail("no overflow row in the sdust check (%s)" % label)
+    return err, ms, plain_ms
+
+
+def phase_annotation_kernels(seed: int, slice_fa: str):
+    """The SDUST, mask and run-stats kernels against their plain versions
+    on the card; returns {name: (max_abs_err, ms, plain_ms)}.  SDUST is
+    held at core 512 on seeded rows and at the main path's shape (W=64,
+    core 2048) on rows of the annotation slice's chunk plan; its ms and
+    plain_ms are the latter's."""
+    import torch
+    from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
+                                                 telo_match_mask_ref,
+                                                 telo_run_stats,
+                                                 telo_run_stats_ref)
+    dev = torch.device("cuda")
+    out = {}
+    W, n = 64, 448
+    clen = 4 * W + 512 + W + 8
+    rows = torch.from_numpy(_sdust_rows(seed, n, clen)).to(dev)
+    err, _ms, _plain = _check_sdust(
+        "seeded, W=64 core=512", rows.reshape(-1),
+        torch.arange(n, device=dev) * clen, clen)
+    del rows
+    codes, off, clen, n_feat = _slice_rows(seed, slice_fa, W, 2048)
+    err2, ms, plain_ms = _check_sdust(
+        "main-path shape, W=64 core=2048: %d slice chunks (%d with a "
+        "feature or an N) + 64 seeded" % (len(off) - 64, n_feat),
+        torch.from_numpy(codes).to(dev), torch.from_numpy(off).to(dev), clen)
+    out["sdust"] = (max(err, err2), ms, plain_ms)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    chr1 = torch.randint(0, 5, (1, GRCH38[0]), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    chr1[0, :9000] = torch.tensor(CCCTAA * 1500, dtype=torch.uint8)
+    chr1[0, -9000:] = torch.tensor(TTAGGG * 1500, dtype=torch.uint8)
+    reads = torch.from_numpy(_telo_reads(seed, 4096, 450)).to(dev)
+    worst = 0
+    for name, x in (("chr1 (1, %d)" % GRCH38[0], chr1),
+                    ("reads (4096, 450)", reads)):
+        for motif in (TTAGGG, CCCTAA):
+            got = telo_match_mask(x, motif)
+            ref = telo_match_mask_ref(x, motif)
+            e = int((got.int() - ref.int()).abs().max())
+            worst = max(worst, e)
+            log("[11 annotation kernels] telo_match_mask %s motif %s: "
+                "max_abs_err=%d, %d matches"
+                % (name, motif, e, int(got.sum(dtype=torch.int64))))
+            if e or not torch.equal(got, ref):
+                fail("mask kernel disagrees with its plain version")
+            del got, ref
+    ms = cuda_ms(lambda: telo_match_mask(chr1, TTAGGG), 20, warmup=3)
+    plain_ms = cuda_ms(lambda: telo_match_mask_ref(chr1, TTAGGG), 3,
+                       warmup=1)
+    log("[11 annotation kernels] telo_match_mask chr1 (1, %d): kernel %.4f "
+        "ms plain %.4f ms" % (GRCH38[0], ms, plain_ms))
+    out["telo_match_mask"] = (worst, ms, plain_ms)
+    del chr1
+    torch.cuda.empty_cache()
+
+    worst, timing = 0, None
+    for B, L in ((4096, 450), (4096, 1800), (4096, 18), (4096, 19),
+                 (4096, 42), (64, 5)):
+        x = torch.from_numpy(_telo_reads(seed, B, L)).to(dev)
+        for motif in (TTAGGG, CCCTAA):
+            got = telo_run_stats(x, motif)
+            ref = telo_run_stats_ref(x, motif)
+            e = max(int((g.int() - r.int()).abs().max())
+                    for g, r in zip(got, ref))
+            worst = max(worst, e)
+            log("[11 annotation kernels] telo_run_stats (%d, %d) motif %s: "
+                "max_abs_err=%d, reads with a match %d, longest %d copies, "
+                "terminal %d" % (B, L, motif, e, int((got[0] > 0).sum()),
+                                 int(got[1].max()), int(got[2].sum())))
+            if e or not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                fail("run-stats kernel disagrees with its plain version")
+        if (B, L) == (4096, 450):
+            timing = (cuda_ms(lambda: telo_run_stats(x, TTAGGG), 50),
+                      cuda_ms(lambda: telo_run_stats_ref(x, TTAGGG), 10))
+            log("[11 annotation kernels] telo_run_stats (4096, 450): kernel "
+                "%.4f ms plain %.4f ms" % timing)
+    out["telo_run_stats"] = (worst, *timing)
+    # the doubling cap: 3 copies in 18 bases report 2, as the JAX function
+    cap = torch.tensor([TTAGGG * 3], dtype=torch.uint8, device=dev)
+    n_, longest, _ = telo_run_stats(cap, TTAGGG)
+    log("[11 annotation kernels] (TTAGGG)x3 in 18 bases: %d matches, "
+        "longest %d (capped at 2^steps)" % (int(n_[0]), int(longest[0])))
+    if int(longest[0]) != 2:
+        fail("the run-stats kernel does not keep the doubling cap")
+    return out
+
+
+def _same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_annotation_goldens(work: str):
+    """sdust / telofind (device backends), telowin and telobreaks through
+    the port's CLI on the card against the C-oracle goldens."""
+    from cornetto_tpu_torch.kernels.sdust import sdust_dp
+    from cornetto_tpu_torch.kernels.telo import telo_match_mask
+    asm = os.path.join(HERE, "test_data", "synth", "asm.fasta")
+    gold = os.path.join(HERE, "test_data", "golden")
+    g = lambda name: os.path.join(gold, name)  # noqa: E731
+    runs = [("sdust.txt", ["sdust", "--backend", "device", asm]),
+            ("sdust_w32t14.txt", ["sdust", "-w", "32", "-t", "14",
+                                  "--backend", "device", asm]),
+            ("telofind.txt", ["telofind", asm, "--backend", "device"]),
+            ("telofind_ccctaa.txt", ["telofind", asm, "CCCTAA", "--backend",
+                                     "device"]),
+            ("telowin.txt", ["telowin", g("telomere.txt"), "99.9", "0.4"]),
+            ("telowin2.txt", ["telowin", g("telomere.txt"), "95", "0.3"]),
+            ("telobreaks.txt", ["telobreaks", g("lens.txt"), g("sdust.txt"),
+                                g("telomere.txt")])]
+    for golden, argv in runs:
+        out = os.path.join(work, "annot_" + golden)
+        sdust_dp.launches = telo_match_mask.launches = 0
+        run_cli_quiet(argv, out, out + ".err")
+        launches = sdust_dp.launches + telo_match_mask.launches
+        same = _same_file(out, g(golden))
+        log("[12 annotation goldens] %s -> %s: byte-equal to the golden: %s, "
+            "kernel launches %d" % (" ".join(a for a in argv if HERE not in a),
+                                    golden, same, launches))
+        device = "--backend" in argv
+        if not same or (device and launches == 0):
+            fail("%s: output differs from the golden or no kernel launch"
+                 % golden)
+
+
+def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
+    """The annotation chain on the chr1-chr3 cut through the port's CLI:
+    sdust and telofind on the card, telowin and telobreaks on their
+    outputs, read tagging with the run-stats kernel; then sdust's per-part
+    split from a second run; telofind against the host backend on the
+    whole cut, sdust on the 20 Mb slice."""
+    import numpy as np
+    import torch
+    from cornetto_tpu.io.fasta import read_fastx
+    from cornetto_tpu.kernels.minimizer import encode_seq
+    from cornetto_tpu_torch.kernels.sdust import sdust_dp
+    from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
+                                                 telo_run_stats,
+                                                 telo_run_stats_ref)
+    from cornetto_tpu_torch.tools import sdust as tsd
+    total = sum(n for _, n in contigs)
+    secs = {}
+    p = lambda name: os.path.join(os.path.dirname(draft), name)  # noqa: E731
+
+    # the main path: counts to 0, drive, read
+    sdust_dp.launches = telo_match_mask.launches = 0
+    telo_run_stats.launches = 0
+    t0 = time.perf_counter()
+    run_cli_quiet(["sdust", "--backend", "device", draft],
+                  p("sdust.txt"), p("sdust.err"))
+    torch.cuda.synchronize()
+    secs["sdust"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli_quiet(["telofind", draft, "--backend", "device"],
+                  p("telofind.txt"), p("telofind.err"))
+    torch.cuda.synchronize()
+    secs["telofind"] = time.perf_counter() - t0
+    with open(p("lens.txt"), "w") as f:
+        f.write("".join("%s\t%d\n" % c for c in contigs))
+    shutil.copy(p("telofind.txt"), p("telomere.txt"))   # awk: same fields
+    t0 = time.perf_counter()
+    run_cli_quiet(["telowin", p("telomere.txt"), "99.9", "0.4"],
+                  p("telowin.txt"), p("telowin.err"))
+    secs["telowin"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli_quiet(["telobreaks", p("lens.txt"), p("sdust.txt"),
+                   p("telomere.txt")], p("telobreaks.txt"),
+                  p("telobreaks.err"))
+    secs["telobreaks"] = time.perf_counter() - t0
+    # read tagging: batches of reads drawn from the slice, 3% from its
+    # telomere arrays, through the run-stats kernel with both motifs
+    rec = next(read_fastx(slice_fa))
+    head = encode_seq(rec.seq)
+    rng = np.random.default_rng([seed, 11])
+    tel = [(s, ln) for s, u, ln in SLICE_FEATURES if u in ("TTAGGG",
+                                                           "CCCTAA")]
+    tagged = {"reads": 0, "with_match": 0, "longest_ge_4": 0, "terminal": 0}
+    t0 = time.perf_counter()
+    tag_batches = []
+    for L in (450, 450, 450, 450, 1800, 1800):
+        starts = rng.integers(0, SLICE - L, size=BATCH)
+        pick = np.flatnonzero(rng.random(BATCH) < 0.03)
+        s, ln = np.array(tel)[rng.integers(0, len(tel), len(pick))].T
+        starts[pick] = s + (rng.random(len(pick)) * np.maximum(
+            ln - L // 2, 1)).astype(np.int64)
+        x = torch.from_numpy(head[starts[:, None] + np.arange(L)]).cuda()
+        tag_batches.append(x)
+        for motif in (TTAGGG, CCCTAA):
+            n_, longest, term = telo_run_stats(x, motif)
+            tagged["reads"] += BATCH
+            tagged["with_match"] += int((n_ > 0).sum())
+            tagged["longest_ge_4"] += int((longest >= 4).sum())
+            tagged["terminal"] += int(term.sum())
+    torch.cuda.synchronize()
+    secs["tagging"] = time.perf_counter() - t0
+    launches = {"sdust": sdust_dp.launches,
+                "telo_match_mask": telo_match_mask.launches,
+                "telo_run_stats": telo_run_stats.launches}
+    # tagging against the plain version (not counted)
+    for x in tag_batches:
+        for motif in (TTAGGG, CCCTAA):
+            if not all(torch.equal(a, b) for a, b in zip(
+                    telo_run_stats(x, motif), telo_run_stats_ref(x, motif))):
+                fail("read tagging differs from the plain version")
+
+    # sdust's per-part split: a second run of the same entry point that
+    # synchronises the card at the end of each part
+    stats = {}
+    t0 = time.perf_counter()
+    with open(p("sdust_split.txt"), "w") as f:
+        tsd.run(draft, backend="device", out=f, stats=stats)
+    torch.cuda.synchronize()
+    secs["sdust_split"] = time.perf_counter() - t0
+    split_same = _same_file(p("sdust.txt"), p("sdust_split.txt"))
+
+    # checks: telofind on the host over the whole cut, sdust on the slice
+    t0 = time.perf_counter()
+    run_cli_quiet(["telofind", draft], p("telofind_host.txt"),
+                  p("telofind_host.err"))
+    secs["telofind_host"] = time.perf_counter() - t0
+    tf_same = _same_file(p("telofind.txt"), p("telofind_host.txt"))
+    t0 = time.perf_counter()
+    run_cli_quiet(["sdust", "--backend", "device", slice_fa],
+                  p("slice_device.txt"), p("slice_device.err"))
+    torch.cuda.synchronize()
+    secs["sdust_slice_device"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli_quiet(["sdust", slice_fa], p("slice_host.txt"),
+                  p("slice_host.err"))
+    secs["sdust_slice_host"] = time.perf_counter() - t0
+    sd_same = _same_file(p("slice_device.txt"), p("slice_host.txt"))
+    # the cut's chr1 rows well inside the slice equal the slice's rows
+    with open(p("sdust.txt")) as f:
+        cut_head = [r.split("\t", 1)[1] for r in f
+                    if r.startswith(contigs[0][0] + "\t")
+                    and int(r.split("\t")[2]) < SLICE - 1000]
+    with open(p("slice_host.txt")) as f:
+        slice_head = [r.split("\t", 1)[1] for r in f
+                      if int(r.split("\t")[2]) < SLICE - 1000]
+    head_same = cut_head == slice_head
+
+    rows = {}
+    for name in ("sdust.txt", "telofind.txt", "telowin.txt",
+                 "telobreaks.txt", "slice_host.txt"):
+        with open(p(name)) as f:
+            rows[name] = f.read().splitlines()
+    masked = sum(int(r.split("\t")[2]) - int(r.split("\t")[1])
+                 for r in rows["sdust.txt"])
+    win_ctgs = {r.split("\t")[1] for r in rows["telowin.txt"]
+                if r.startswith("Window")}
+    parts = {k: stats.get(k, 0.0) for k in (
+        "plan", "h2d", "kernel", "readback", "overflow", "host_spans",
+        "assemble")}
+    log("[13 annotation] sdust --backend device on the cut (CLI): %.2f s "
+        "wall = %.2f Mb/s; %d rows, %d bp masked"
+        % (secs["sdust"], total / secs["sdust"] / 1e6, len(rows["sdust.txt"]),
+           masked))
+    log("[13 annotation] sdust split (second run, synchronised per part): "
+        "%.2f s wall; %d chunks, %d overflow rows, %d host-span bases; parts: "
+        "%s, FASTA read + rest %.2f s; output equal to the CLI run's: %s"
+        % (secs["sdust_split"], stats.get("chunks", 0),
+           stats.get("overflow_rows", 0), stats.get("host_span_bases", 0),
+           ", ".join("%s %.3f s" % kv for kv in parts.items()),
+           secs["sdust_split"] - sum(parts.values()), split_same))
+    log("[13 annotation] telofind --backend device on the cut: %.2f s "
+        "(%.2f Mb/s), host backend %.2f s; %d rows; byte-equal: %s"
+        % (secs["telofind"], total / secs["telofind"] / 1e6,
+           secs["telofind_host"], len(rows["telofind.txt"]), tf_same))
+    log("[13 annotation] sdust on the %d bp slice: device %.2f s, host "
+        "(native DP) %.2f s; %d rows; byte-equal: %s; the cut's chr1 rows "
+        "ending before %d equal the slice's: %s (%d rows)"
+        % (SLICE, secs["sdust_slice_device"], secs["sdust_slice_host"],
+           len(rows["slice_host.txt"]), sd_same, SLICE - 1000, head_same,
+           len(cut_head)))
+    log("[13 annotation] telowin %.2f s: %d rows, windows on %s; telobreaks "
+        "%.2f s: %d rows; read tagging %.2f s: %s"
+        % (secs["telowin"], len(rows["telowin.txt"]), sorted(win_ctgs),
+           secs["telobreaks"], len(rows["telobreaks.txt"]), secs["tagging"],
+           tagged))
+    log("[13 annotation] main-path launches: %s" % launches)
+    if not (tf_same and sd_same and head_same and cut_head and split_same):
+        fail("annotation outputs differ from the host backends")
+    if win_ctgs != {c for c, _ in contigs} or not rows["telobreaks.txt"] \
+            or not tagged["terminal"] or not masked:
+        fail("the annotation chain missed a planted feature")
+    if min(launches.values()) == 0 or launches["sdust"] != len(contigs) \
+            or launches["telo_match_mask"] != 2 * len(contigs):
+        fail("an annotation kernel was not launched as expected: %s"
+             % launches)
+    return launches, secs, stats
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -782,10 +1292,21 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
 
+    clock = [time.perf_counter()]
+    phase_s = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - clock[0], 2)
+        clock[0] = now
+
     card = phase_device()
+    lap("1 device")
     phase_build()
+    lap("2 build")
     max_err, ktimes = phase_kernels(args.seed)
     ws_err, ws_times = phase_window_kernel(args.seed)
+    lap("3 kernel")
 
     from cornetto_tpu.dist.checkpoint import load_index
     from cornetto_tpu.native.fastq_pack import iter_packed_batches
@@ -820,6 +1341,7 @@ def main():
            state.btable.numel() * state.btable.element_size(),
            tuple(state.panel.shape), time.perf_counter() - t0,
            torch.cuda.max_memory_allocated()))
+    lap("4 state")
 
     # [5] the slice end to end through the CLI
     n_reads = FULL_BATCHES * BATCH + TAIL
@@ -866,6 +1388,7 @@ def main():
     if s_acc[2] < 0.99 or s_acc[3] < 1.0:
         fail("decisions on the 24 Mbp draft below 99%% right or a junk "
              "read unblocked: %s" % (s_acc,))
+    lap("5 slice")
 
     # [6] card against CPU on the first two batches
     head = os.path.join(work, "head.fq")
@@ -883,6 +1406,7 @@ def main():
         "card's: %s" % (len(cpu_rows), time.perf_counter() - t0, same))
     if not same:
         fail("CPU rows differ from the card's rows")
+    lap("6 cpu")
 
     # [7] numbers
     with open(os.devnull, "w") as dn:
@@ -919,11 +1443,29 @@ def main():
                   ms_d2h, card))
     del eng, state, idx, panel
     torch.cuda.empty_cache()
+    lap("7 numbers")
 
     # [8]-[10] the panel path
     phase_goldens(work)
+    lap("8 goldens")
     hp_err, hp = phase_human_panel(args.seed, work, contigs)
+    lap("9 panel")
     ws_launches, it = phase_iteration(args.seed, work)
+    lap("10 iteration")
+
+    # [11]-[13] the annotation path, on a draft of chr1-chr3
+    draft, slice_fa, counts = write_annotation_draft(
+        os.path.join(work, "annot_s%d" % args.seed), args.seed, contigs[:3])
+    log("[11 annotation draft] %d contigs, %d bp (%s), slice %d bp"
+        % (3, sum(n for _, n in contigs[:3]), counts, SLICE))
+    lap("11 annotation draft")
+    ak = phase_annotation_kernels(args.seed, slice_fa)
+    lap("11 annotation kernels")
+    phase_annotation_goldens(work)
+    lap("12 annotation goldens")
+    an_launches, an_secs, an_stats = phase_annotation(
+        args.seed, draft, slice_fa, contigs[:3])
+    lap("13 annotation")
     log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
         "W=%d S=%d: %.4f ms, plain %.4f ms (%s)"
         % (WIN, INC, ws_times[0], ws_times[1], card))
@@ -939,6 +1481,14 @@ def main():
         % (it["n_reads"], it["cov_s"], it["cov_reads_per_s"], card))
     log("[7 numbers] aligner-free iteration: flow %.2f s, steps %s (%s)"
         % (it["flow_s"], it["flow_steps"], card))
+    log("[7 numbers] annotation, chr1-chr3 689 Mbp: sdust --backend device "
+        "%.2f s (kernel %.3f s in the split run), telofind --backend device %.2f s, host "
+        "%.2f s; sdust on the 20 Mb slice: device %.2f s, host %.2f s (%s)"
+        % (an_secs["sdust"], an_stats.get("kernel", 0.0),
+           an_secs["telofind"], an_secs["telofind_host"],
+           an_secs["sdust_slice_device"], an_secs["sdust_slice_host"], card))
+    log("[phases] seconds: %s; total %.1f s"
+        % (json.dumps(phase_s), sum(phase_s.values())))
 
     ms, plain_ms = ktimes["nfree"]
     print(json.dumps({"kernels": [
@@ -951,7 +1501,16 @@ def main():
          "source": "cornetto_tpu_torch/csrc/window_sum.cu",
          "replaces": "cornetto_tpu/kernels/pallas_window.py:37",
          "launches": ws_launches, "max_abs_err": max(ws_err, hp_err),
-         "ms": ws_times[0], "plain_ms": ws_times[1]}]}))
+         "ms": ws_times[0], "plain_ms": ws_times[1]}] + [
+        {"name": name, "route": "cuda",
+         "source": "cornetto_tpu_torch/csrc/%s.cu" % src,
+         "replaces": "cornetto_tpu/kernels/%s" % replaces,
+         "launches": an_launches[name], "max_abs_err": ak[name][0],
+         "ms": ak[name][1], "plain_ms": ak[name][2]}
+        for name, src, replaces in (
+            ("sdust", "sdust", "pallas_sdust.py:316"),
+            ("telo_match_mask", "telo", "pallas_telo.py:63"),
+            ("telo_run_stats", "telo", "pallas_telo.py:147"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

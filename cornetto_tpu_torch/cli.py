@@ -1,9 +1,11 @@
 """`cornetto` CLI of the PyTorch port: counterpart of cornetto_tpu/cli.py.
 
 Ported: ``livefish`` (run | index | toml | cov), ``boringbits``,
-``noboringbits``, ``create-panel`` and ``flow``; every other subcommand of
-the JAX package exits 1 with "not yet ported to cornetto_tpu_torch".  The
-device is cuda unless CORNETTO_FORCE_CPU=1 (cornetto_tpu_torch.device)."""
+``noboringbits``, ``create-panel``, ``flow``, ``sdust`` and ``telofind``;
+``telowin`` and ``telobreaks`` are the JAX package's host tools, run as
+they are.  Every other subcommand of the JAX package exits 1 with "not yet
+ported to cornetto_tpu_torch".  The device is cuda unless
+CORNETTO_FORCE_CPU=1 (cornetto_tpu_torch.device)."""
 
 import sys
 
@@ -13,11 +15,10 @@ from cornetto_tpu_torch.livefish.cli import NOT_PORTED
 
 # subcommands of cornetto_tpu.cli that the port does not have yet
 JAX_ONLY = (
-    "fixasm", "telowin", "telobreaks", "telofind", "minidot",
-    "bigenough", "sdust", "fa2bed", "seq", "asmstats", "nx", "report",
-    "telocontigs", "depth", "bammerge", "recreate-panel", "telostats",
-    "minidotplot", "hapnetto", "refine", "asmstats-pipeline", "flow-eval",
-    "flow-sv", "flow-simplex", "gfa2fa")
+    "fixasm", "minidot", "bigenough", "fa2bed", "seq", "asmstats", "nx",
+    "report", "telocontigs", "depth", "bammerge", "recreate-panel",
+    "telostats", "minidotplot", "hapnetto", "refine", "asmstats-pipeline",
+    "flow-eval", "flow-sv", "flow-simplex", "gfa2fa")
 
 
 def print_usage(fp) -> int:
@@ -26,6 +27,14 @@ def print_usage(fp) -> int:
     fp.write("   create panel:\n")
     fp.write("       noboringbits    print no boring bits in an assembly\n")
     fp.write("       boringbits      print boring bits in an assembly\n")
+    fp.write("   telo:\n")
+    fp.write("       telowin         analyse telomere windows in a fasta "
+             "file\n")
+    fp.write("       telobreaks      find telomere breaks in a fasta file\n")
+    fp.write("       telofind        find telomere sequences in a fasta "
+             "file\n")
+    fp.write("       sdust           symmetric DUST "
+             "(https://github.com/lh3/sdust)\n")
     fp.write("   pipelines:\n")
     fp.write("       create-panel    create-cornetto pipeline "
              "(fa2bed+noboringbits+intervals+bigenough)\n")
@@ -55,6 +64,18 @@ def main(argv=None) -> int:
     elif cmd == "flow":
         from cornetto_tpu_torch.flow import runner
         ret = runner.main(rest)
+    elif cmd == "sdust":
+        from cornetto_tpu_torch.tools import sdust
+        ret = sdust.main(rest)
+    elif cmd == "telofind":
+        from cornetto_tpu_torch.tools import telofind
+        ret = telofind.main(rest)
+    elif cmd == "telowin":
+        from cornetto_tpu.tools import telowin
+        ret = telowin.main(rest)
+    elif cmd == "telobreaks":
+        from cornetto_tpu.tools import telobreaks
+        ret = telobreaks.main(rest)
     elif cmd == "livefish":
         from cornetto_tpu_torch.livefish import cli as livefish_cli
         ret = livefish_cli.main(rest)

@@ -1,0 +1,192 @@
+"""The annotation chain through the port's CLI (cornetto_tpu_torch.cli):
+sdust, telofind, telowin and telobreaks under CORNETTO_FORCE_CPU=1 against
+test_data/golden (the reference C tool's outputs, byte for byte), the
+device backends against the host ones, and the entry points' freedom from
+jax.  The device DP's chunk core is cut to its smallest (2W) here so the
+plain lane-parallel DP stays fast on the CPU; the result does not depend
+on it."""
+
+import contextlib
+import io
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from cornetto_tpu_torch import cli
+from cornetto_tpu_torch.tools import sdust as tsdust
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cli(argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["cornetto"] + argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.fixture
+def cpu(monkeypatch):
+    monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
+    monkeypatch.delenv("CORNETTO_TELOFIND_DEVICE", raising=False)
+    monkeypatch.setattr(tsdust, "CORE", 128)
+    # the plain DP's small ops gain nothing from intra-op threads, and the
+    # suite's parallel workers would oversubscribe the cores with them
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("golden,args", [
+    ("sdust.txt", []),
+    ("sdust.txt", ["--backend", "device"]),
+    ("sdust_w32t14.txt", ["-w", "32", "-t", "14"]),
+    ("sdust_w32t14.txt", ["-w", "32", "-t", "14", "--backend", "device"]),
+    ("sdust_w32t14.txt", ["-w32", "-t14", "--backend=device"])])
+def test_sdust_golden(cpu, synth, gold, golden, args):
+    rc, out, err = _cli(["sdust"] + args + [str(synth / "asm.fasta")])
+    assert rc == 0, err
+    assert out == (gold / golden).read_text()
+    assert "CMD: sdust" in err
+
+
+def test_sdust_run_reports_stats(cpu, synth, gold):
+    """tools.sdust.run(stats=...) adds each contig's counts and seconds per
+    part; the output is the golden's."""
+    out, stats = io.StringIO(), {}
+    tsdust.run(str(synth / "asm.fasta"), backend="device", out=out,
+               stats=stats)
+    assert out.getvalue() == (gold / "sdust.txt").read_text()
+    assert stats["chunks"] > 0 and stats["overflow_rows"] == 0
+    assert all(stats[k] >= 0 for k in ("plan", "h2d", "kernel", "readback",
+                                       "overflow", "host_spans", "assemble"))
+
+
+def test_sdust_device_rejects_wide_window_and_low_threshold(cpu, synth):
+    rc, out, err = _cli(["sdust", "-w", "67", "--backend", "device",
+                         str(synth / "asm.fasta")])
+    assert rc == 1 and out == ""
+    assert "W=67 is outside 3..66" in err and "--backend host" in err
+    rc, out, err = _cli(["sdust", "-t", "4", "--backend", "device",
+                         str(synth / "asm.fasta")])
+    assert rc == 1 and out == "" and "T=4 is below 5" in err
+    # the host DP takes any window and threshold
+    rc, out, _ = _cli(["sdust", "-w", "67", "-t", "4",
+                       str(synth / "asm.fasta")])
+    assert rc == 0 and out
+
+
+@pytest.mark.parametrize("golden,args", [
+    ("telofind.txt", []),
+    ("telofind.txt", ["--backend", "device"]),
+    ("telofind.txt", ["--backend=device"]),
+    ("telofind_ccctaa.txt", ["CCCTAA"]),
+    ("telofind_ccctaa.txt", ["CCCTAA", "--backend", "device"])])
+def test_telofind_golden(cpu, synth, gold, golden, args):
+    rc, out, err = _cli(["telofind", str(synth / "asm.fasta")] + args)
+    assert rc == 0, err
+    assert out == (gold / golden).read_text()
+
+
+def test_telofind_env_switch_and_bad_backend(cpu, monkeypatch, synth, gold):
+    from cornetto_tpu_torch.kernels import telo
+    calls = []
+    real = telo.telo_match_mask
+    monkeypatch.setattr(telo, "telo_match_mask",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setenv("CORNETTO_TELOFIND_DEVICE", "1")
+    rc, out, _ = _cli(["telofind", str(synth / "asm.fasta")])
+    assert rc == 0 and out == (gold / "telofind.txt").read_text()
+    assert len(calls) == 8                      # 4 contigs x 2 strands
+    rc, out, err = _cli(["telofind", str(synth / "asm.fasta"), "--backend",
+                         "nope"])
+    assert rc == 1 and out == "" and "host or device" in err
+
+
+def test_telofind_non_acgt_motif_scans_on_host(cpu, tmp_path):
+    """A motif the mask kernel cannot express takes the host scan, as in
+    the JAX package: the device backend's rows equal the host's."""
+    fa = tmp_path / "n.fa"
+    fa.write_text(">c\nACGTTTNGGGTTNGGGAATTNGGG\n>d\nNNNN\n")
+    outs = [_cli(["telofind", str(fa), "TTNGGG"] + b)[1]
+            for b in ([], ["--backend", "device"])]
+    assert outs[0] == outs[1] and outs[0].count("\n") == 2
+
+
+@pytest.mark.parametrize("golden,args", [
+    ("telowin.txt", ["99.9", "0.4"]),
+    ("telowin2.txt", ["95", "0.3"])])
+def test_telowin_golden(cpu, gold, golden, args):
+    rc, out, err = _cli(["telowin", str(gold / "telomere.txt")] + args)
+    assert rc == 0, err
+    assert out == (gold / golden).read_text()
+
+
+def test_telobreaks_golden(cpu, gold):
+    rc, out, err = _cli(["telobreaks", str(gold / "lens.txt"),
+                         str(gold / "sdust.txt"),
+                         str(gold / "telomere.txt")])
+    assert rc == 0, err
+    assert out == (gold / "telobreaks.txt").read_text()
+
+
+def test_chain_from_device_outputs(cpu, tmp_path, synth, gold):
+    """sdust and telofind on the device backends, then telowin and
+    telobreaks on their outputs, as the reference's annotation chain."""
+    fasta = str(synth / "asm.fasta")
+    _, sd, _ = _cli(["sdust", "--backend", "device", fasta])
+    _, tf, _ = _cli(["telofind", fasta, "--backend", "device"])
+    telomere = "".join("\t".join([r[0]] + r[1:]) + "\n" for r in
+                       (line.split("\t") for line in tf.splitlines()))
+    (tmp_path / "sdust.txt").write_text(sd)
+    (tmp_path / "telomere.txt").write_text(telomere)
+    assert telomere == (gold / "telomere.txt").read_text()
+    _, win, _ = _cli(["telowin", str(tmp_path / "telomere.txt"), "99.9",
+                      "0.4"])
+    _, brk, _ = _cli(["telobreaks", str(gold / "lens.txt"),
+                      str(tmp_path / "sdust.txt"),
+                      str(tmp_path / "telomere.txt")])
+    assert win == (gold / "telowin.txt").read_text()
+    assert brk == (gold / "telobreaks.txt").read_text()
+
+
+def test_usage_lists_annotation_commands(capsys):
+    assert cli.main(["cornetto"]) == 1
+    err = capsys.readouterr().err
+    for cmd in ("sdust", "telofind", "telowin", "telobreaks"):
+        assert cmd in err
+        assert cmd not in cli.JAX_ONLY
+    rc, _, err = _cli(["telostats"])
+    assert rc == 1 and "not yet ported" in err
+
+
+def test_annotation_imports_no_jax(tmp_path, synth, gold):
+    """sdust and telofind on their device backends, and telobreaks, through
+    the port's CLI leave jax out of sys.modules (a fresh interpreter: the
+    test process itself has jax loaded)."""
+    code = (
+        "import contextlib, io, sys\n"
+        "from cornetto_tpu_torch.cli import main\n"
+        "from cornetto_tpu_torch.tools import sdust\n"
+        "sdust.CORE = 128\n"
+        "fa, gold = sys.argv[1:]\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert main(['cornetto', 'sdust', '--backend', 'device',"
+        " fa]) == 0\n"
+        "    assert main(['cornetto', 'telofind', fa, '--backend',"
+        " 'device']) == 0\n"
+        "    assert main(['cornetto', 'telobreaks', gold + '/lens.txt',"
+        " gold + '/sdust.txt', gold + '/telomere.txt']) == 0\n"
+        "assert 'torch' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, CORNETTO_FORCE_CPU="1", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(synth / "asm.fasta"), str(gold)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]

@@ -151,9 +151,9 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [["livefish", "replay", "i", "r"],
-                                  ["sdust", "x.fa"],
+                                  ["telostats", "x.fa"],
                                   ["recreate-panel", "x.fa"],
-                                  ["telofind", "x.fa"]])
+                                  ["telocontigs", "x.fa"]])
 def test_unported_commands_exit_1(argv, capsys):
     assert torch_cli.main(["cornetto"] + argv) == 1
     assert "not yet ported to cornetto_tpu_torch" in capsys.readouterr().err
