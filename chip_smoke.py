@@ -11,7 +11,7 @@ checkout.  It:
 3. holds the kernel bit-equal to its plain PyTorch version on the card in
    all three validity variants, and times both;
 4. builds a seeded synthetic draft at human scale (GRCh38's chromosome
-   lengths, 3.09 Gbp in 87 contigs), its minimizer index (shared host
+   lengths, 3.09 Gbp in 87 contigs), its minimizer index (the port's host
    index build) and a panel of half its 1 Mb blocks, under build/smoke/
    (reused on a rerun with the same seed), and uploads the index;
 5. runs 64 full batches of 4096 sampled 450-base reads plus a short tail
@@ -36,25 +36,38 @@ checkout.  It:
    then `livefish cov` on two batches on the card against the CPU;
 11. writes the annotation draft of phase 13 (reused per seed) and holds
    the SDUST, telomere-mask and run-stats kernels equal to their plain
-   versions on the card (SDUST on seeded mixed chunks at core 512 and at
+   versions on the card (SDUST in both designs, the light + heavy passes
+   and PR 3's single pass, on seeded mixed chunks at core 512, also at
+   W = 3, 4, 8 and 66 with T = 5 or 14 and a budget of 16 row-steps, and at
    the main path's shape, core 2048, on chunks of the draft's 20 Mb slice
    plus overflow rows; chr1's length as one row; read batches with
-   telomeric arrays and the doubling-cap cases), and times both;
+   telomeric arrays and the doubling-cap cases), and times both; SDUST's
+   two designs are timed in turns (old, new, new, old) on the slice chunks
+   alone, the seeded rows alone, the costliest row alone (by the plain
+   version's find_perfect row-steps) and the main-path case; then the two
+   passes' time against the light pass's budget on the main-path case and
+   on 1,024 chunks to all of chr1's of the cut, each held equal to PR 3's
+   single pass;
 12. runs the annotation goldens (sdust, telofind on the device backends,
-   telowin, telobreaks) through `cornetto_tpu_torch.cli` on the card,
-   byte-equal to test_data/golden;
+   the default and named, telowin, telobreaks) through
+   `cornetto_tpu_torch.cli` on the card, byte-equal to test_data/golden;
 13. the annotation chain at human scale: chr1-chr3 (689 Mbp) with seeded
-   satellites, telomere arrays and N gaps through `sdust --backend device`
-   and `telofind --backend device`, then `telowin` and `telobreaks` on
+   satellites, telomere arrays and N gaps through `sdust` and `telofind`
+   (their default, device backends), then `telowin` and `telobreaks` on
    their outputs and read tagging with the run-stats kernel; a second sdust
-   run gives the per-part split; telofind byte-equal to its host backend
-   on the whole cut, sdust on a 20 Mb slice.
+   run gives the per-part split and the SDUST kernel's time as light pass
+   plus heavy pass with the number of heavy rows; telofind byte-equal to
+   its `--backend host` on the whole cut, sdust on a 20 Mb slice.
 
 Phase 2 builds the four kernel sources in parallel; phases 3 and 11 hold
-each kernel bit-equal to its plain PyTorch version on the card.  Prints the
-numbers, each phase's seconds, a {"kernels": [...]} line, the nvidia-smi
-name/power line, and last {"ok": true, "device": {...}}.  Any failure exits
-non-zero with no result.
+each kernel bit-equal to its plain PyTorch version on the card.  Imports
+nothing of the JAX package: the index, the parsers and the host DP are the
+port's own.  Prints the numbers, each phase's seconds, a {"kernels": [...]}
+line (each kernel's launches on its main path, error, time, plain time,
+bound and the bound's kind, and the time of one PyTorch call computing the
+same function where there is one), the nvidia-smi name/power line, and
+last {"ok": true, "device": {...}}.  Any failure exits non-zero with no
+result.
 """
 
 import argparse
@@ -71,6 +84,47 @@ BATCH, READ_LEN, K, W = 4096, 450, 15, 10
 FULL_BATCHES, TAIL = 64, 1000
 KERNELS = ("extract_minima", "window_sum", "sdust", "telo")
 WIN, INC = 2500, 50                      # boringbits' default window
+
+# the least time the card could take for a kernel's work (bound_ms): its
+# bytes (each input read once, each output written once) over the HBM rate
+# of an H100 SXM, or its integer operations over the card's int32 rate
+# (64 INT32 lanes an SM x 132 SMs x 1.98 GHz boost clock), whichever is the
+# larger.  Operations a unit of work, counted from what the function must
+# compute: a k-mer position of extraction (2-bit decode, forward and
+# reverse-complement update, canonical min, the 7-step hash finalizer,
+# validity and window min); a base step of the SDUST DP (word update,
+# save, window shift with its counters and the find_perfect test); a
+# find_perfect row-step (count lookup and update, the r update, the firing
+# test, the ratio comparisons); a byte compare of the motif match, counted
+# as the input needs them when each start stops at its first mismatch
+# (early_exit_compares).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+EXTRACT_OPS_KMER = 25
+SDUST_OPS_BASE, SDUST_OPS_ROW_STEP = 20, 8
+
+
+def early_exit_compares(x, motif) -> int:
+    """Byte compares a match of motif at every start of x's rows needs when
+    each start stops at its first mismatch (starts past L - k included:
+    they stop at the row's end)."""
+    import torch
+    k, L = len(motif), x.shape[-1]
+    alive = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    total = 0
+    for j, m in enumerate(motif):
+        total += int(alive[..., :L - j].sum(dtype=torch.int64))
+        alive[..., :L - j] &= x[..., j:] == m
+        alive[..., L - j:] = False
+    return total
+
+
+def bound(work):
+    """(bound_ms, bound_by) of a kernel's {"bytes", "ops"}."""
+    by_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    by_ops = work["ops"] / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else \
+        (by_ops, "operations")
 
 # GRCh38 primary assembly chromosome lengths (chr1..chr22, chrX, chrY)
 GRCH38 = [248956422, 242193529, 198295559, 190214555, 181538259, 170805979,
@@ -133,8 +187,9 @@ def panel_rows(seed: int, contigs, block: int):
 def build_or_load_index(path: str, contigs, codes, rows):
     """Build (or reuse) the index + panel checkpoint at path(.npz)."""
     import numpy as np
-    from cornetto_tpu.dist.checkpoint import save_index
-    from cornetto_tpu.livefish.index import build_index, build_panel_mask
+    from cornetto_tpu_torch.dist.checkpoint import save_index
+    from cornetto_tpu_torch.livefish.index import (build_index,
+                                                   build_panel_mask)
     stamp = path + ".done"
     if os.path.exists(stamp) and os.path.exists(path + ".npz"):
         log("index: reusing %s.npz" % path)
@@ -302,7 +357,7 @@ def phase_build():
 def _kernel_inputs(seed, B, L, k, variant, dev):
     import numpy as np
     import torch
-    from cornetto_tpu.kernels.minimizer import pack_reads
+    from cornetto_tpu_torch.kernels.minimizer import pack_reads
     rng = np.random.default_rng([seed, B, L, k])
     reads = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
     lengths = None
@@ -344,7 +399,10 @@ def phase_kernels(seed: int):
                                                     lengths=ln), 200)
                 ms_ref = cuda_ms(lambda: extract_minima_ref(
                     pk, nm, L, k, w, lengths=ln), 10)
-                timing[variant] = (ms, ms_ref)
+                m = (L - k + 1) // w
+                timing[variant] = dict(
+                    ms=ms, plain_ms=ms_ref, bytes=pk.numel() + B * m * 5,
+                    ops=B * (L - k + 1) * EXTRACT_OPS_KMER)
                 line += " kernel %.4f ms plain %.4f ms" % (ms, ms_ref)
             log(line)
             if err or vbad or not torch.equal(h, hr):
@@ -378,8 +436,8 @@ def phase_window_kernel(seed: int):
     """Window-sum kernel vs plain on the card; returns (worst error, chr1
     (kernel ms, plain ms))."""
     import torch
-    from cornetto_tpu.kernels.window_sum import n_windows
-    from cornetto_tpu_torch.kernels.window_sum import (window_sums,
+    from cornetto_tpu_torch.kernels.window_sum import (n_windows,
+                                                       window_sums,
                                                        window_sums_ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -401,8 +459,25 @@ def phase_window_kernel(seed: int):
             ms = cuda_ms(lambda: window_sums(x, w, s, nw), 20, warmup=3)
             ms_ref = cuda_ms(lambda: window_sums_ref(x, w, s, nw), 5,
                              warmup=2)
-            timing = (ms, ms_ref)
-            line += " kernel %.4f ms plain %.4f ms" % (ms, ms_ref)
+            # the library yardstick: one PyTorch call for the full windows,
+            # on an int64 copy of the tracks (a reduction to another dtype
+            # first casts the whole unfolded view: 185 GiB at chr1)
+            src = x.to(torch.int64)
+            lib = lambda: src.unfold(-1, w, s).sum(-1, dtype=torch.int64)  # noqa
+            full = lib()
+            lib_same = torch.equal(full, got[:, :full.shape[1]])
+            lib_ms = cuda_ms(lib, 5, warmup=2)
+            timing = dict(ms=ms, plain_ms=ms_ref, library_ms=lib_ms,
+                          bytes=x.numel() * x.element_size() + rows * nw * 8,
+                          ops=rows * (n + nw))
+            line += (" kernel %.4f ms plain %.4f ms; x.unfold(-1, W, S)"
+                     ".sum(-1, dtype=torch.int64) on %s %.4f ms on its %d "
+                     "full windows, equal: %s"
+                     % (ms, ms_ref, src.dtype, lib_ms, full.shape[1],
+                        lib_same))
+            if not lib_same:
+                fail("the library yardstick disagrees with the kernel")
+            del full, src
         log(line)
         if err or not torch.equal(got, ref):
             fail("window-sum kernel disagrees with its plain version in "
@@ -943,9 +1018,9 @@ def _slice_rows(seed: int, slice_fa: str, W: int, core: int):
     seeded rows of every kind after it (the homopolymer bursts overflow).
     Returns (codes, row offsets, clen, number of feature chunks)."""
     import numpy as np
-    from cornetto_tpu.io.fasta import read_fastx
-    from cornetto_tpu.kernels.sdust_core import _NT4
+    from cornetto_tpu_torch.io.fasta import read_fastx
     from cornetto_tpu_torch.kernels.sdust import plan_rows
+    from cornetto_tpu_torch.kernels.sdust_core import _NT4
     seq = next(read_fastx(slice_fa)).seq.encode("latin-1")
     chunks, _host, padded, a, clen = plan_rows(
         _NT4[np.frombuffer(seq, dtype=np.uint8)], W, core)
@@ -962,38 +1037,126 @@ def _slice_rows(seed: int, slice_fa: str, W: int, core: int):
     return codes, off, clen, len(near)
 
 
-def _check_sdust(label, codes, off, clen):
-    """sdust_dp against sdust_dp_ref on the card: (max_abs_err, ms,
-    plain_ms); fails on any difference."""
+def _check_sdust(label, codes, off, clen, T=20, W=64, budget=None,
+                 need_overflow=True, need_heavy=True):
+    """sdust_dp (the two passes at ``budget``, default the wrapper's, and
+    PR 3's single pass: budget 0) against sdust_dp_ref on the card; fails
+    on any difference, when the heavy rows are not the rows whose
+    find_perfect row-steps (the plain version's count) pass the budget, or
+    when no row went to the heavy pass (need_heavy) or overflowed
+    (need_overflow).  Returns (max_abs_err, plain_ms, each row's
+    find_perfect row-steps, heavy rows, intervals)."""
     import torch
-    from cornetto_tpu_torch.kernels.sdust import (max_intervals, sdust_dp,
+    from cornetto_tpu_torch.kernels.sdust import (default_budget,
+                                                  max_intervals, sdust_dp,
                                                   sdust_dp_ref)
-    got = sdust_dp(codes, off, clen)
-    ref, plain_ms = timed_ms(lambda: sdust_dp_ref(codes, off, clen))
-    err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
-    ms = cuda_ms(lambda: sdust_dp(codes, off, clen), 20, warmup=3)
+    stats = {}
+    got = sdust_dp(codes, off, clen, T, W, budget=budget, stats=stats)
+    old = sdust_dp(codes, off, clen, T, W, budget=0)
+    (*ref, steps), plain_ms = timed_ms(
+        lambda: sdust_dp_ref(codes, off, clen, T, W, return_steps=True))
+    err = max(int((g.long() - r.long()).abs().max())
+              for out in (got, old) for g, r in zip(out, ref))
     maxi = max_intervals(clen)
     n_over = int((got[2] >= maxi).sum())
-    log("[11 annotation kernels] sdust %s (%d rows x %d codes, MAXI %d): "
-        "max_abs_err=%d (starts, finishes, counts), %d overflow rows, %d "
-        "intervals; kernel %.4f ms plain %.1f ms"
-        % (label, len(off), clen, maxi, err, n_over,
-           int(got[2].clamp(max=maxi).sum()), ms, plain_ms))
-    if err or not all(torch.equal(g, r) for g, r in zip(got, ref)):
+    n_iv = int(got[2].clamp(max=maxi).sum())
+    log("[11 annotation kernels] sdust %s, T=%d W=%d budget %s (%d rows x "
+        "%d codes, MAXI %d): max_abs_err=%d (starts, finishes, counts; two "
+        "passes and PR 3's single pass), %d overflow rows, %d intervals, %d "
+        "heavy rows; find_perfect row-steps %d in all, %d in the costliest "
+        "row; plain %.1f ms"
+        % (label, T, W, "default" if budget is None else budget, len(off),
+           clen, maxi, err, n_over, n_iv, stats["heavy_rows"],
+           int(steps.sum()), int(steps.max()), plain_ms))
+    if err or not all(torch.equal(g, r) for out in (got, old)
+                      for g, r in zip(out, ref)):
         fail("sdust kernel disagrees with its plain version (%s)" % label)
-    if not n_over:
-        fail("no overflow row in the sdust check (%s)" % label)
-    return err, ms, plain_ms
+    b = default_budget(len(off), codes.device) if budget is None else budget
+    if stats["heavy_rows"] != int((steps > b).sum()):
+        fail("sdust: %d heavy rows, %d rows past the budget (%s)"
+             % (stats["heavy_rows"], int((steps > b).sum()), label))
+    if (need_overflow and not n_over) or (need_heavy and
+                                          not stats["heavy_rows"]):
+        fail("no overflow row or no heavy row in the sdust check (%s)"
+             % label)
+    return err, plain_ms, steps.cpu(), stats["heavy_rows"], n_iv
 
 
-def phase_annotation_kernels(seed: int, slice_fa: str):
-    """The SDUST, mask and run-stats kernels against their plain versions
-    on the card; returns {name: (max_abs_err, ms, plain_ms)}.  SDUST is
-    held at core 512 on seeded rows and at the main path's shape (W=64,
-    core 2048) on rows of the annotation slice's chunk plan; its ms and
-    plain_ms are the latter's."""
+def _sdust_turns(label, codes, off, clen):
+    """PR 3's single pass (budget 0) and the two passes timed in turns
+    (old, new, new, old) on one input: (old ms, new ms, heavy rows)."""
+    from cornetto_tpu_torch.kernels.sdust import sdust_dp
+    old = lambda: sdust_dp(codes, off, clen, budget=0)  # noqa: E731
+    new = lambda: sdust_dp(codes, off, clen)            # noqa: E731
+    t = [cuda_ms(fn, 5, warmup=2) for fn in (old, new, new, old)]
+    stats = {}
+    sdust_dp(codes, off, clen, stats=stats)
+    o, n = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    log("[11 annotation kernels] sdust turns on %s (%d rows): PR 3 single "
+        "pass %.4f / %.4f ms, two passes %.4f / %.4f ms (light %.4f + heavy "
+        "%.4f ms, %d heavy rows): %.1fx"
+        % (label, len(off), t[0], t[3], t[1], t[2], stats["light_ms"],
+           stats["heavy_ms"], stats["heavy_rows"], o / n))
+    return o, n, stats["heavy_rows"]
+
+
+def _sdust_budget_sweep(seed: int, draft: str, main_case, budgets):
+    """The two passes' time against the light pass's budget (the default
+    for the row count first) on the main-path case and on seeded subsets of
+    chr1's chunks of the cut (1,024 to all 121,412 rows), each result held
+    equal to PR 3's single pass (budget 0, timed too).  Returns
+    {"rows/budget": {ms, light_ms, heavy_ms, heavy_rows}}."""
+    import numpy as np
     import torch
-    from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
+    from cornetto_tpu_torch.io.fasta import read_fastx
+    from cornetto_tpu_torch.kernels.sdust import (default_budget, plan_rows,
+                                                  sdust_dp)
+    from cornetto_tpu_torch.kernels.sdust_core import _NT4
+    dev = torch.device("cuda")
+    seq = next(read_fastx(draft)).seq.encode("latin-1")
+    _c, _h, padded, a, clen = plan_rows(_NT4[np.frombuffer(seq, np.uint8)])
+    del seq
+    c1 = torch.from_numpy(padded).to(dev)
+    rng = np.random.default_rng([seed, 13])
+    cases = [("main-path case", *main_case)]
+    for n in (1024, 2048, 4096, 16384, len(a)):
+        pick = np.sort(rng.choice(len(a), n, replace=False)) \
+            if n < len(a) else np.arange(len(a))
+        cases.append(("chr1 %d chunks" % n, c1,
+                      torch.from_numpy(a[pick]).to(dev), clen))
+    sweep = {}
+    for name, codes, off, cl in cases:
+        want = sdust_dp(codes, off, cl, budget=0)
+        line = []
+        for b in (default_budget(len(off), dev), *budgets):
+            run = lambda: sdust_dp(codes, off, cl, budget=b)  # noqa: E731
+            if not all(torch.equal(x, y) for x, y in zip(run(), want)):
+                fail("sdust at budget %d differs from budget 0 on %s"
+                     % (b, name))
+            ms = cuda_ms(run, 3, warmup=1)
+            st = {}
+            sdust_dp(codes, off, cl, budget=b, stats=st)
+            sweep["%d/%d" % (len(off), b)] = dict(ms=ms, **st)
+            line.append("%d: %.3f (%d)" % (b, ms, st["heavy_rows"]))
+        log("[11 annotation kernels] sdust budget sweep on %s (%d rows, "
+            "default budget %d): budget: two-pass ms (heavy rows) %s"
+            % (name, len(off), default_budget(len(off), dev),
+               ", ".join(line)))
+    del c1
+    return sweep
+
+
+def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
+    """The SDUST, mask and run-stats kernels against their plain versions
+    on the card; returns {name: {err, ms, plain_ms, bytes, ops, ...}}.
+    SDUST (both designs) is held at core 512 on seeded rows and at the main
+    path's shape (W=64, core 2048) on rows of the annotation slice's chunk
+    plan, where PR 3's single pass and the two passes are timed in turns on
+    the slice chunks, the seeded rows, the costliest row and all of them;
+    its ms and plain_ms are the main-path case's."""
+    import torch
+    from cornetto_tpu_torch.kernels.sdust import max_intervals
+    from cornetto_tpu_torch.kernels.telo import (_steps_for, telo_match_mask,
                                                  telo_match_mask_ref,
                                                  telo_run_stats,
                                                  telo_run_stats_ref)
@@ -1002,16 +1165,53 @@ def phase_annotation_kernels(seed: int, slice_fa: str):
     W, n = 64, 448
     clen = 4 * W + 512 + W + 8
     rows = torch.from_numpy(_sdust_rows(seed, n, clen)).to(dev)
-    err, _ms, _plain = _check_sdust(
-        "seeded, W=64 core=512", rows.reshape(-1),
-        torch.arange(n, device=dev) * clen, clen)
+    err, *_ = _check_sdust("seeded, W=64 core=512", rows.reshape(-1),
+                           torch.arange(n, device=dev) * clen, clen)
+    del rows
+    # the window's ends and the lowest threshold the CLI takes, on rows of
+    # every kind at core 512, with a budget low enough that the satellite
+    # rows cross it (NW = 64 fills the row-mask words; at W = 3 the window
+    # is one word and find_perfect takes no row-step, so no row is heavy)
+    for W_, T_ in ((66, 5), (66, 14), (3, 5), (4, 5), (8, 5), (8, 14)):
+        cl = 4 * W_ + 512 + W_ + 8
+        rows = torch.from_numpy(_sdust_rows(seed + W_, 112, cl)).to(dev)
+        e, *_ = _check_sdust("seeded, core=512", rows.reshape(-1),
+                             torch.arange(112, device=dev) * cl, cl, T_, W_,
+                             budget=16, need_overflow=False,
+                             need_heavy=W_ > 3)
+        err = max(err, e)
     del rows
     codes, off, clen, n_feat = _slice_rows(seed, slice_fa, W, 2048)
-    err2, ms, plain_ms = _check_sdust(
+    codes, off = torch.from_numpy(codes).to(dev), torch.from_numpy(off).to(dev)
+    err2, plain_ms, steps, heavy, n_iv = _check_sdust(
         "main-path shape, W=64 core=2048: %d slice chunks (%d with a "
         "feature or an N) + 64 seeded" % (len(off) - 64, n_feat),
-        torch.from_numpy(codes).to(dev), torch.from_numpy(off).to(dev), clen)
-    out["sdust"] = (max(err, err2), ms, plain_ms)
+        codes, off, clen)
+    # the tail: PR 3's design against the two passes on the slice chunks
+    # alone, the seeded rows alone, the costliest row alone, and all rows
+    worst = int(steps.argmax())
+    turns = {}
+    for name, part in (("slice chunks", off[:-64]), ("seeded rows", off[-64:]),
+                       ("costliest row (%d)" % worst, off[worst:worst + 1]),
+                       ("main-path case", off)):
+        turns[name] = _sdust_turns(name, codes, part.contiguous(), clen)
+    old_ms, ms, _ = turns["main-path case"]
+    sweep = _sdust_budget_sweep(seed, draft, (codes, off, clen),
+                                (0, 16, 64, 256, 1024, 4096, 16384))
+    n = len(off)
+    span = torch.sort(off).values.cpu()
+    row_bytes = int(torch.minimum(span[1:] - span[:-1],
+                                  torch.tensor(clen)).sum()) + clen
+    out_row = 8 * max_intervals(clen) + 4        # starts, finishes, count
+    work = dict(bytes=row_bytes + 8 * n + n * out_row,
+                ops=SDUST_OPS_BASE * n * clen
+                + SDUST_OPS_ROW_STEP * int(steps.sum()))
+    out["sdust"] = dict(err=max(err, err2), ms=ms, plain_ms=plain_ms,
+                        old_ms=old_ms, heavy_rows=heavy, turns=turns,
+                        sweep=sweep,
+                        row_steps=int(steps.sum()), intervals=n_iv, **work)
+    del codes, off
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     chr1 = torch.randint(0, 5, (1, GRCH38[0]), generator=gen, device=dev,
@@ -1038,7 +1238,11 @@ def phase_annotation_kernels(seed: int, slice_fa: str):
                        warmup=1)
     log("[11 annotation kernels] telo_match_mask chr1 (1, %d): kernel %.4f "
         "ms plain %.4f ms" % (GRCH38[0], ms, plain_ms))
-    out["telo_match_mask"] = (worst, ms, plain_ms)
+    n, cmp = GRCH38[0], early_exit_compares(chr1, TTAGGG)
+    log("[11 annotation kernels] telo_match_mask chr1: %d byte compares "
+        "with early exit (%.3f a base)" % (cmp, cmp / n))
+    out["telo_match_mask"] = dict(err=worst, ms=ms, plain_ms=plain_ms,
+                                  bytes=2 * n, ops=cmp)
     del chr1
     torch.cuda.empty_cache()
 
@@ -1063,7 +1267,10 @@ def phase_annotation_kernels(seed: int, slice_fa: str):
                       cuda_ms(lambda: telo_run_stats_ref(x, TTAGGG), 10))
             log("[11 annotation kernels] telo_run_stats (4096, 450): kernel "
                 "%.4f ms plain %.4f ms" % timing)
-    out["telo_run_stats"] = (worst, *timing)
+    B, L, m = 4096, 450, len(TTAGGG)
+    out["telo_run_stats"] = dict(
+        err=worst, ms=timing[0], plain_ms=timing[1], bytes=B * L + 9 * B,
+        ops=B * L * (2 * m + 3 * _steps_for(L, m)))
     # the doubling cap: 3 copies in 18 bases report 2, as the JAX function
     cap = torch.tensor([TTAGGG * 3], dtype=torch.uint8, device=dev)
     n_, longest, _ = telo_run_stats(cap, TTAGGG)
@@ -1080,17 +1287,18 @@ def _same_file(a: str, b: str) -> bool:
 
 
 def phase_annotation_goldens(work: str):
-    """sdust / telofind (device backends), telowin and telobreaks through
-    the port's CLI on the card against the C-oracle goldens."""
+    """sdust / telofind (device backends: the default, and named),
+    telowin and telobreaks through the port's CLI on the card against the
+    C-oracle goldens."""
     from cornetto_tpu_torch.kernels.sdust import sdust_dp
     from cornetto_tpu_torch.kernels.telo import telo_match_mask
     asm = os.path.join(HERE, "test_data", "synth", "asm.fasta")
     gold = os.path.join(HERE, "test_data", "golden")
     g = lambda name: os.path.join(gold, name)  # noqa: E731
-    runs = [("sdust.txt", ["sdust", "--backend", "device", asm]),
+    runs = [("sdust.txt", ["sdust", asm]),
             ("sdust_w32t14.txt", ["sdust", "-w", "32", "-t", "14",
                                   "--backend", "device", asm]),
-            ("telofind.txt", ["telofind", asm, "--backend", "device"]),
+            ("telofind.txt", ["telofind", asm]),
             ("telofind_ccctaa.txt", ["telofind", asm, "CCCTAA", "--backend",
                                      "device"]),
             ("telowin.txt", ["telowin", g("telomere.txt"), "99.9", "0.4"]),
@@ -1106,7 +1314,7 @@ def phase_annotation_goldens(work: str):
         log("[12 annotation goldens] %s -> %s: byte-equal to the golden: %s, "
             "kernel launches %d" % (" ".join(a for a in argv if HERE not in a),
                                     golden, same, launches))
-        device = "--backend" in argv
+        device = argv[0] in ("sdust", "telofind")
         if not same or (device and launches == 0):
             fail("%s: output differs from the golden or no kernel launch"
                  % golden)
@@ -1120,8 +1328,8 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
     whole cut, sdust on the 20 Mb slice."""
     import numpy as np
     import torch
-    from cornetto_tpu.io.fasta import read_fastx
-    from cornetto_tpu.kernels.minimizer import encode_seq
+    from cornetto_tpu_torch.io.fasta import read_fastx
+    from cornetto_tpu_torch.kernels.minimizer import encode_seq
     from cornetto_tpu_torch.kernels.sdust import sdust_dp
     from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
                                                  telo_run_stats,
@@ -1131,17 +1339,16 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
     secs = {}
     p = lambda name: os.path.join(os.path.dirname(draft), name)  # noqa: E731
 
-    # the main path: counts to 0, drive, read
+    # the main path (sdust and telofind on their default, device backends):
+    # counts to 0, drive, read
     sdust_dp.launches = telo_match_mask.launches = 0
     telo_run_stats.launches = 0
     t0 = time.perf_counter()
-    run_cli_quiet(["sdust", "--backend", "device", draft],
-                  p("sdust.txt"), p("sdust.err"))
+    run_cli_quiet(["sdust", draft], p("sdust.txt"), p("sdust.err"))
     torch.cuda.synchronize()
     secs["sdust"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run_cli_quiet(["telofind", draft, "--backend", "device"],
-                  p("telofind.txt"), p("telofind.err"))
+    run_cli_quiet(["telofind", draft], p("telofind.txt"), p("telofind.err"))
     torch.cuda.synchronize()
     secs["telofind"] = time.perf_counter() - t0
     with open(p("lens.txt"), "w") as f:
@@ -1204,8 +1411,8 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
 
     # checks: telofind on the host over the whole cut, sdust on the slice
     t0 = time.perf_counter()
-    run_cli_quiet(["telofind", draft], p("telofind_host.txt"),
-                  p("telofind_host.err"))
+    run_cli_quiet(["telofind", draft, "--backend", "host"],
+                  p("telofind_host.txt"), p("telofind_host.err"))
     secs["telofind_host"] = time.perf_counter() - t0
     tf_same = _same_file(p("telofind.txt"), p("telofind_host.txt"))
     t0 = time.perf_counter()
@@ -1214,8 +1421,8 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
     torch.cuda.synchronize()
     secs["sdust_slice_device"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run_cli_quiet(["sdust", slice_fa], p("slice_host.txt"),
-                  p("slice_host.err"))
+    run_cli_quiet(["sdust", "--backend", "host", slice_fa],
+                  p("slice_host.txt"), p("slice_host.err"))
     secs["sdust_slice_host"] = time.perf_counter() - t0
     sd_same = _same_file(p("slice_device.txt"), p("slice_host.txt"))
     # the cut's chr1 rows well inside the slice equal the slice's rows
@@ -1240,7 +1447,7 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
     parts = {k: stats.get(k, 0.0) for k in (
         "plan", "h2d", "kernel", "readback", "overflow", "host_spans",
         "assemble")}
-    log("[13 annotation] sdust --backend device on the cut (CLI): %.2f s "
+    log("[13 annotation] sdust (device, the default) on the cut (CLI): %.2f s "
         "wall = %.2f Mb/s; %d rows, %d bp masked"
         % (secs["sdust"], total / secs["sdust"] / 1e6, len(rows["sdust.txt"]),
            masked))
@@ -1251,7 +1458,14 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
            stats.get("overflow_rows", 0), stats.get("host_span_bases", 0),
            ", ".join("%s %.3f s" % kv for kv in parts.items()),
            secs["sdust_split"] - sum(parts.values()), split_same))
-    log("[13 annotation] telofind --backend device on the cut: %.2f s "
+    log("[13 annotation] sdust kernel on the cut (split run, CUDA events): "
+        "light pass %.3f ms + heavy pass %.3f ms = %.3f ms over %d launches; "
+        "%d heavy rows of %d chunks"
+        % (stats.get("light_ms", 0.0), stats.get("heavy_ms", 0.0),
+           stats.get("light_ms", 0.0) + stats.get("heavy_ms", 0.0),
+           2 * len(contigs), stats.get("heavy_rows", 0),
+           stats.get("chunks", 0)))
+    log("[13 annotation] telofind (device, the default) on the cut: %.2f s "
         "(%.2f Mb/s), host backend %.2f s; %d rows; byte-equal: %s"
         % (secs["telofind"], total / secs["telofind"] / 1e6,
            secs["telofind_host"], len(rows["telofind.txt"]), tf_same))
@@ -1272,7 +1486,7 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
     if win_ctgs != {c for c, _ in contigs} or not rows["telobreaks.txt"] \
             or not tagged["terminal"] or not masked:
         fail("the annotation chain missed a planted feature")
-    if min(launches.values()) == 0 or launches["sdust"] != len(contigs) \
+    if min(launches.values()) == 0 or launches["sdust"] != 2 * len(contigs) \
             or launches["telo_match_mask"] != 2 * len(contigs):
         fail("an annotation kernel was not launched as expected: %s"
              % launches)
@@ -1283,10 +1497,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
-    if not os.path.isdir(os.path.join(HERE, "cornetto_tpu_torch")) or \
-            not os.path.isdir(os.path.join(HERE, "cornetto_tpu")):
-        fail("cornetto_tpu_torch/ and cornetto_tpu/ not found beside "
-             "chip_smoke.py: run it from a checkout of the repository")
+    if not os.path.isdir(os.path.join(HERE, "cornetto_tpu_torch")):
+        fail("cornetto_tpu_torch/ not found beside chip_smoke.py: run it "
+             "from a checkout of the repository")
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
@@ -1308,8 +1521,8 @@ def main():
     ws_err, ws_times = phase_window_kernel(args.seed)
     lap("3 kernel")
 
-    from cornetto_tpu.dist.checkpoint import load_index
-    from cornetto_tpu.native.fastq_pack import iter_packed_batches
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    from cornetto_tpu_torch.native.fastq_pack import iter_packed_batches
     from cornetto_tpu_torch.kernels.extract import (extract_minima,
                                                     extract_minima_ref)
     from cornetto_tpu_torch.livefish import decide as td
@@ -1459,7 +1672,7 @@ def main():
     log("[11 annotation draft] %d contigs, %d bp (%s), slice %d bp"
         % (3, sum(n for _, n in contigs[:3]), counts, SLICE))
     lap("11 annotation draft")
-    ak = phase_annotation_kernels(args.seed, slice_fa)
+    ak = phase_annotation_kernels(args.seed, slice_fa, draft)
     lap("11 annotation kernels")
     phase_annotation_goldens(work)
     lap("12 annotation goldens")
@@ -1467,8 +1680,9 @@ def main():
         args.seed, draft, slice_fa, contigs[:3])
     lap("13 annotation")
     log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
-        "W=%d S=%d: %.4f ms, plain %.4f ms (%s)"
-        % (WIN, INC, ws_times[0], ws_times[1], card))
+        "W=%d S=%d: %.4f ms, plain %.4f ms, x.unfold(...).sum(...) %.4f ms "
+        "(%s)" % (WIN, INC, ws_times["ms"], ws_times["plain_ms"],
+                  ws_times["library_ms"], card))
     log("[7 numbers] human-scale window stats, 87 contigs: %.0f windows/s "
         "(%s)" % (hp["human_windows_per_s"], card))
     log("[7 numbers] create-panel --ranged-bedgraph, chr1-chr3 on the card: "
@@ -1481,36 +1695,47 @@ def main():
         % (it["n_reads"], it["cov_s"], it["cov_reads_per_s"], card))
     log("[7 numbers] aligner-free iteration: flow %.2f s, steps %s (%s)"
         % (it["flow_s"], it["flow_steps"], card))
-    log("[7 numbers] annotation, chr1-chr3 689 Mbp: sdust --backend device "
-        "%.2f s (kernel %.3f s in the split run), telofind --backend device %.2f s, host "
-        "%.2f s; sdust on the 20 Mb slice: device %.2f s, host %.2f s (%s)"
-        % (an_secs["sdust"], an_stats.get("kernel", 0.0),
+    log("[7 numbers] annotation, chr1-chr3 689 Mbp: sdust (device) %.2f s "
+        "(kernel %.3f ms light + %.3f ms heavy, %d heavy rows, in the split "
+        "run), telofind (device) %.2f s, --backend host %.2f s; sdust on "
+        "the 20 Mb slice: device %.2f s, host %.2f s (%s)"
+        % (an_secs["sdust"], an_stats.get("light_ms", 0.0),
+           an_stats.get("heavy_ms", 0.0), an_stats.get("heavy_rows", 0),
            an_secs["telofind"], an_secs["telofind_host"],
            an_secs["sdust_slice_device"], an_secs["sdust_slice_host"], card))
+    sd = ak["sdust"]
+    log("[7 numbers] sdust kernel at the main path's shape (384 rows, core "
+        "2048): two passes %.4f ms (%d heavy rows), PR 3's single pass %.4f "
+        "ms, plain %.1f ms; bound %.4f ms (%s) (%s)"
+        % (sd["ms"], sd["heavy_rows"], sd["old_ms"], sd["plain_ms"],
+           *bound(sd), card))
     log("[phases] seconds: %s; total %.1f s"
         % (json.dumps(phase_s), sum(phase_s.values())))
 
-    ms, plain_ms = ktimes["nfree"]
-    print(json.dumps({"kernels": [
-        {"name": "extract_minima", "route": "cuda",
-         "source": "cornetto_tpu_torch/csrc/extract_minima.cu",
-         "replaces": "cornetto_tpu/kernels/pallas_extract.py:161",
-         "launches": launches, "max_abs_err": max_err,
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "window_sum", "route": "cuda",
-         "source": "cornetto_tpu_torch/csrc/window_sum.cu",
-         "replaces": "cornetto_tpu/kernels/pallas_window.py:37",
-         "launches": ws_launches, "max_abs_err": max(ws_err, hp_err),
-         "ms": ws_times[0], "plain_ms": ws_times[1]}] + [
-        {"name": name, "route": "cuda",
-         "source": "cornetto_tpu_torch/csrc/%s.cu" % src,
-         "replaces": "cornetto_tpu/kernels/%s" % replaces,
-         "launches": an_launches[name], "max_abs_err": ak[name][0],
-         "ms": ak[name][1], "plain_ms": ak[name][2]}
-        for name, src, replaces in (
-            ("sdust", "sdust", "pallas_sdust.py:316"),
-            ("telo_match_mask", "telo", "pallas_telo.py:63"),
-            ("telo_run_stats", "telo", "pallas_telo.py:147"))]}))
+    table = [
+        ("extract_minima", "extract_minima", "pallas_extract.py:161",
+         launches, max_err, ktimes["nfree"]),
+        ("window_sum", "window_sum", "pallas_window.py:37", ws_launches,
+         max(ws_err, hp_err), ws_times),
+        ("sdust", "sdust", "pallas_sdust.py:316", an_launches["sdust"],
+         ak["sdust"]["err"], ak["sdust"]),
+        ("telo_match_mask", "telo", "pallas_telo.py:63",
+         an_launches["telo_match_mask"], ak["telo_match_mask"]["err"],
+         ak["telo_match_mask"]),
+        ("telo_run_stats", "telo", "pallas_telo.py:147",
+         an_launches["telo_run_stats"], ak["telo_run_stats"]["err"],
+         ak["telo_run_stats"])]
+    kernels = []
+    for name, src, replaces, n_launch, err, t in table:
+        b_ms, b_by = bound(t)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "cornetto_tpu_torch/csrc/%s.cu" % src,
+            "replaces": "cornetto_tpu/kernels/%s" % replaces,
+            "launches": n_launch, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t.get("library_ms")})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,16 @@
 
 Ported: ``livefish`` (run | index | toml | cov), ``boringbits``,
 ``noboringbits``, ``create-panel``, ``flow``, ``sdust`` and ``telofind``;
-``telowin`` and ``telobreaks`` are the JAX package's host tools, run as
-they are.  Every other subcommand of the JAX package exits 1 with "not yet
+``telowin`` and ``telobreaks`` are the port's copies of the JAX package's
+host tools.  Every other subcommand of the JAX package exits 1 with "not yet
 ported to cornetto_tpu_torch".  The device is cuda unless
 CORNETTO_FORCE_CPU=1 (cornetto_tpu_torch.device)."""
 
 import sys
 
-from cornetto_tpu.utils import timing
-from cornetto_tpu.version import __version__
 from cornetto_tpu_torch.livefish.cli import NOT_PORTED
+from cornetto_tpu_torch.utils import timing
+from cornetto_tpu_torch.version import __version__
 
 # subcommands of cornetto_tpu.cli that the port does not have yet
 JAX_ONLY = (
@@ -71,10 +71,10 @@ def main(argv=None) -> int:
         from cornetto_tpu_torch.tools import telofind
         ret = telofind.main(rest)
     elif cmd == "telowin":
-        from cornetto_tpu.tools import telowin
+        from cornetto_tpu_torch.tools import telowin
         ret = telowin.main(rest)
     elif cmd == "telobreaks":
-        from cornetto_tpu.tools import telobreaks
+        from cornetto_tpu_torch.tools import telobreaks
         ret = telobreaks.main(rest)
     elif cmd == "livefish":
         from cornetto_tpu_torch.livefish import cli as livefish_cli

@@ -1,2 +1,2 @@
 """The iteration orchestrator on the port (counterpart of
-``cornetto_tpu.flow``; the DAG runner is shared)."""
+``cornetto_tpu.flow``, with its own copy of the DAG runner)."""

@@ -1,0 +1,157 @@
+"""FASTA/FASTQ streaming reader with kseq-equivalent record semantics
+(reference: src/kseq.h — name is up to the first whitespace, the rest of the
+header line is the comment, sequence lines are concatenated; works on plain
+or gzip-compressed files)."""
+
+import gzip
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+
+def open_maybe_gzip(path: str, mode: str = "rt"):
+    with open(path, "rb") as probe:
+        magic = probe.read(2)
+    if magic == b"\x1f\x8b":
+        return gzip.open(path, mode)
+    return open(path, mode)
+
+
+@dataclass
+class FastxRecord:
+    name: str
+    comment: Optional[str]
+    seq: str
+    qual: Optional[str] = None
+
+    def __len__(self) -> int:
+        return len(self.seq)
+
+
+def read_fastx(path: str) -> Iterator[FastxRecord]:
+    """Stream records from a FASTA or FASTQ file (auto-detected per record
+    by its '>' / '@' header, like kseq).  Plain FASTA takes a streaming
+    bytes fast path (the old whole-file text parse decoded + copied a
+    3 Gbp genome several times over — 93 MB/s and 2x the file in RAM);
+    FASTQ streams line-by-line."""
+    with open_maybe_gzip(path, "rb") as fp:
+        first = fp.read(1)
+        if not first:
+            return
+        if first == b">":
+            for blob in _iter_fasta_blobs(fp):
+                yield _fasta_record(blob)
+        else:
+            import io as _io
+            import itertools
+            text = _io.TextIOWrapper(fp, encoding="latin-1")
+            yield from parse_fastx(
+                itertools.chain([first.decode("latin-1") + text.readline()],
+                                text))
+
+
+def _iter_fasta_blobs(fp, chunk_size: int = 32 << 20):
+    """Yield one bytes blob per FASTA record (header line + body, leading
+    '>' stripped) from a binary stream positioned after the first '>'.
+    Record boundaries are '\n>'; a one-byte carry handles the straddle
+    across read chunks.  Peak memory = the largest record."""
+    segs = []          # byte segments of the current record
+    tail = b""
+    while True:
+        chunk = fp.read(chunk_size)
+        if not chunk:
+            break
+        data = tail + chunk
+        tail = data[-1:]
+        body = data[:-1]
+        pos = 0
+        while True:
+            j = body.find(b"\n>", pos)
+            if j < 0:
+                if pos < len(body):
+                    segs.append(body[pos:])
+                break
+            segs.append(body[pos:j + 1])   # keep the newline
+            yield b"".join(segs)
+            segs = []
+            pos = j + 2
+    segs.append(tail)
+    last = b"".join(segs)
+    if last:
+        yield last
+
+
+def _fasta_record(blob: bytes) -> FastxRecord:
+    nl = blob.find(b"\n")
+    if nl < 0:
+        header, body = blob, b""
+    else:
+        header, body = blob[:nl], blob[nl + 1:]
+    header = header.rstrip(b"\r").decode("latin-1")
+    name, comment = _split_ws(header)
+    if len(body) > (1 << 20):
+        # large contig: one numpy boolean compress instead of tens of
+        # thousands of per-line bytes objects
+        import numpy as _np
+        arr = _np.frombuffer(body, dtype=_np.uint8)
+        seq = arr[arr != 10].tobytes()
+    else:
+        seq = b"".join(body.split(b"\n"))
+    if b"\r" in seq:
+        seq = seq.replace(b"\r", b"")
+    return FastxRecord(name, comment, seq.decode("latin-1"), None)
+
+
+def parse_fastx(fp) -> Iterator[FastxRecord]:
+    header = None
+    for line in fp:
+        line = line.rstrip("\r\n")
+        if line.startswith(">") or line.startswith("@"):
+            header = line
+            break
+    if header is None:
+        return
+    while header is not None:
+        is_fastq = header.startswith("@")
+        hdr = header[1:]
+        sp = _split_ws(hdr)
+        name, comment = sp
+        seq_parts = []
+        qual = None
+        header = None
+        if is_fastq:
+            for line in fp:
+                line = line.rstrip("\r\n")
+                if line.startswith("+"):
+                    break
+                seq_parts.append(line)
+            seq = "".join(seq_parts)
+            qual_parts = []
+            qlen = 0
+            for line in fp:
+                line = line.rstrip("\r\n")
+                qual_parts.append(line)
+                qlen += len(line)
+                if qlen >= len(seq):
+                    break
+            qual = "".join(qual_parts)
+            for line in fp:
+                line = line.rstrip("\r\n")
+                if line.startswith("@") or line.startswith(">"):
+                    header = line
+                    break
+        else:
+            for line in fp:
+                line = line.rstrip("\r\n")
+                if line.startswith(">") or line.startswith("@"):
+                    header = line
+                    break
+                seq_parts.append(line)
+            seq = "".join(seq_parts)
+        yield FastxRecord(name, comment, seq, qual)
+
+
+def _split_ws(hdr: str):
+    for i, ch in enumerate(hdr):
+        if ch in " \t":
+            return hdr[:i], hdr[i + 1:]
+    return hdr, None

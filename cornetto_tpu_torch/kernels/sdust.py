@@ -1,18 +1,20 @@
 """SDUST DP over independent chunks: counterpart of
 cornetto_tpu/kernels/pallas_sdust.py (sdust_pallas_chunks, sdust_pallas).
 
-``sdust_dp`` launches the hand-written CUDA kernel (csrc/sdust.cu, one
-thread per chunk running the sequential DP) for tensors on a CUDA device and
-runs the plain PyTorch version ``sdust_dp_ref`` for tensors on the CPU; on
-a CUDA tensor it launches or raises, never falls back.  A row of the DP is
+``sdust_dp`` launches the hand-written CUDA kernels (csrc/sdust.cu: a light
+pass of one thread per chunk running the sequential DP, which hands every
+chunk past ``budget`` find_perfect row-steps to a heavy pass of one warp per
+chunk) for tensors on a CUDA device and runs the plain PyTorch version
+``sdust_dp_ref`` for tensors on the CPU; on a CUDA tensor it launches or
+raises, never falls back.  A row of the DP is
 ``clen`` codes (0-3 bases, 4 = N) at ``codes[row_off[r]:]``, so one upload
 of a padded contig serves all its chunks; ``sdust_chunks`` is the
 ``(n, CLEN)`` row-matrix form of sdust_pallas_chunks on top of it.
 
-``sdust_device`` is sdust_pallas: the shared chunk plan, N-proximal spans
-and re-run of overflow rows on the shared native DP, and the shared
-clip-and-union ``assemble`` (cornetto_tpu/kernels/sdust_chunked.py), so it
-is bit-identical to the sequential DP.
+``sdust_device`` is sdust_pallas: the chunk plan, N-proximal spans and
+re-run of overflow rows on the native DP, and the clip-and-union
+``assemble`` (the port's copies: kernels/sdust_chunked.py,
+native/sdust.py), so it is bit-identical to the sequential DP.
 
 The JAX kernel's ring holds ROWS = 64 words, so its results are defined for
 W - 2 <= 64 only; the port takes 3 <= W <= 66 (``check_window``).  Its
@@ -28,12 +30,13 @@ import time
 import numpy as np
 import torch
 
-from cornetto_tpu.kernels.sdust_chunked import (DEF_W, assemble, plan_chunks,
-                                                run_host_spans)
-from cornetto_tpu.kernels.sdust_core import _NT4
-from cornetto_tpu.native.sdust import sdust as sdust_exact
 from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.kernels import _build
+from cornetto_tpu_torch.kernels.sdust_chunked import (DEF_W, assemble,
+                                                      plan_chunks,
+                                                      run_host_spans)
+from cornetto_tpu_torch.kernels.sdust_core import _NT4
+from cornetto_tpu_torch.native.sdust import sdust as sdust_exact
 
 _KERNEL = "sdust"
 SD_WLEN = 3
@@ -42,6 +45,22 @@ GSLOT = 128      # pending-interval start slots of the JAX kernel
 W_MIN, W_MAX = SD_WLEN, ROWS + SD_WLEN - 1
 T_MIN = 5
 _BIG = 1 << 30
+# find_perfect row-steps after which the light pass hands a row to the heavy
+# pass (dense satellite takes ~60 a base, random sequence a few hundred a
+# chunk).  Few rows leave most SMs idle, so a low budget gives every row
+# with any dense stretch a warp of its own; many rows fill the card, and a
+# high budget keeps the rows of a few hundred row-steps in the light pass,
+# 32 to a warp.  The budget grows with the rows per SM between the two
+# (PERF.md; chip_smoke.py phase 11 sweeps it from 384 rows to 121,412).
+BUDGET_MIN, BUDGET_MAX = 16, 4096
+BUDGET_PER_ROW_PER_SM = 4
+
+
+def default_budget(n: int, device) -> int:
+    """The light pass's budget for n rows on a CUDA device: 4 row-steps
+    per row per SM, within 16..4096."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(max(BUDGET_PER_ROW_PER_SM * n // sms, BUDGET_MIN), BUDGET_MAX)
 
 
 def check_window(W: int) -> None:
@@ -100,6 +119,7 @@ class _LaneDP:
         self.res_s, self.res_f, self.outn = z(n), z(n), z(n)
         self.res_has = torch.zeros(n, dtype=torch.bool, device=dev)
         self.outs, self.outf = z(self.maxi, n), z(self.maxi, n)
+        self.steps = z(n)        # find_perfect row-steps of each row
 
     # -- intervals
     def _emit(self, emit):
@@ -194,6 +214,7 @@ class _LaneDP:
         L, lenw, st = self.L[idx], self.lenw[idx], start[idx]
         rr = self.iota_r
         act = (rr >= L) & (rr < lenw) & (rr >= 1)                # (64, k)
+        self.steps[idx] += act.sum(0)
         # c[t_rr] when row rr is reached: cv plus the sweep's earlier rows
         earlier = act[None, :, :] & (rr[None, :, :] < rr[:, None, :])
         same = ring[:, None, :] == ring[None, :, :]
@@ -266,7 +287,8 @@ class _LaneDP:
         self._emit(self.res_has)
         i32 = torch.int32
         return (self.outs.t().to(i32).contiguous(),
-                self.outf.t().to(i32).contiguous(), self.outn.to(i32))
+                self.outf.t().to(i32).contiguous(), self.outn.to(i32),
+                self.steps)
 
 
 def _check(codes, row_off, clen: int, W: int) -> None:
@@ -292,26 +314,31 @@ def _check(codes, row_off, clen: int, W: int) -> None:
 
 
 def sdust_dp_ref(codes: torch.Tensor, row_off: torch.Tensor, clen: int,
-                 T: int = 20, W: int = DEF_W):
+                 T: int = 20, W: int = DEF_W, return_steps: bool = False):
     """Plain PyTorch version of ``sdust_dp`` (same arguments and result);
-    runs on any device."""
+    runs on any device.  return_steps: also return each row's count of
+    find_perfect row-steps ((n,) int64), the work the light pass budgets."""
     _check(codes, row_off, clen, W)
     pos = row_off[None, :] + torch.arange(clen, device=codes.device)[:, None]
-    return _LaneDP(codes[pos].long(), T, W).run()
+    *out, steps = _LaneDP(codes[pos].long(), T, W).run()
+    return (*out, steps) if return_steps else tuple(out)
 
 
 def _lib():
     lib = _build.load(_KERNEL)
-    fn = lib.cornetto_sdust
-    if fn.argtypes is None:
+    light, heavy = lib.cornetto_sdust_light, lib.cornetto_sdust_heavy
+    if light.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.restype = ci
-        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
-    return fn
+        light.restype = heavy.restype = ci
+        light.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp,
+                          vp]
+        heavy.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    return light, heavy
 
 
 def sdust_dp(codes: torch.Tensor, row_off: torch.Tensor, clen: int,
-             T: int = 20, W: int = DEF_W):
+             T: int = 20, W: int = DEF_W, budget: int = None,
+             stats: dict = None):
     """The SDUST DP of each row codes[row_off[r] : row_off[r] + clen]
     (uint8 codes, 4 = N; the row's end is an N).  Returns (starts,
     finishes, count): int32 (n, MAXI), (n, MAXI) and (n,) with
@@ -319,24 +346,61 @@ def sdust_dp(codes: torch.Tensor, row_off: torch.Tensor, clen: int,
     each row in row-local coordinates, zero elsewhere.  A count >= MAXI
     marks an overflow row (its intervals are incomplete).
 
-    A CUDA input launches the kernel on the current stream without
-    synchronising (one launch for all rows) and adds one to
-    ``sdust_dp.launches``."""
+    A CUDA input launches the light pass and then the heavy pass over the
+    rows past ``budget`` find_perfect row-steps (default
+    ``default_budget(n, device)``), on the current stream without
+    synchronising, and adds one to ``sdust_dp.launches`` for each launch;
+    ``budget=0`` is the light pass alone over every row.  stats:
+    optional dict; the call adds the passes' milliseconds (CUDA events;
+    ``light_ms``, ``heavy_ms``) and the number of heavy rows
+    (``heavy_rows``) to it, which synchronises the card."""
     _check(codes, row_off, clen, W)
+    if budget is not None and budget < 0:
+        raise ValueError("budget must be >= 0 (got %d)" % budget)
     if codes.device.type == "cpu":
         return sdust_dp_ref(codes, row_off, clen, T, W)
     n, maxi = len(row_off), max_intervals(clen)
-    starts = torch.zeros((n, maxi), dtype=torch.int32, device=codes.device)
+    dev = codes.device
+    if budget is None:
+        budget = default_budget(n, dev)
+    starts = torch.zeros((n, maxi), dtype=torch.int32, device=dev)
     fins = torch.zeros_like(starts)
-    count = torch.empty(n, dtype=torch.int32, device=codes.device)
-    fn = _lib()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(codes.data_ptr(), row_off.data_ptr(), n, clen, T, W, maxi,
-                 starts.data_ptr(), fins.data_ptr(), count.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("sdust kernel launch failed: CUDA error %d" % err)
-    sdust_dp.launches += 1
+    count = torch.empty(n, dtype=torch.int32, device=dev)
+    heavy_rows = torch.empty(n, dtype=torch.int32, device=dev)
+    n_heavy = torch.zeros(1, dtype=torch.int32, device=dev)
+    light, heavy = _lib()
+    args = (codes.data_ptr(), row_off.data_ptr())
+    outs = (starts.data_ptr(), fins.data_ptr(), count.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+            if stats is not None else None
+        if ev:
+            ev[0].record(stream)
+        err = light(*args, n, clen, T, W, maxi, budget, *outs,
+                    heavy_rows.data_ptr(), n_heavy.data_ptr(),
+                    stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError("sdust light-pass launch failed: CUDA error "
+                               "%d" % err)
+        sdust_dp.launches += 1
+        if ev:
+            ev[1].record(stream)
+        if budget:
+            err = heavy(*args, n, clen, T, W, maxi, *outs,
+                        heavy_rows.data_ptr(), n_heavy.data_ptr(),
+                        stream.cuda_stream)
+            if err != 0:
+                raise RuntimeError("sdust heavy-pass launch failed: CUDA "
+                                   "error %d" % err)
+            sdust_dp.launches += 1
+        if ev:
+            ev[2].record(stream)
+            ev[2].synchronize()
+            for key, v in (("light_ms", ev[0].elapsed_time(ev[1])),
+                           ("heavy_ms", ev[1].elapsed_time(ev[2])),
+                           ("heavy_rows", int(n_heavy.item()))):
+                stats[key] = stats.get(key, 0) + v
     return starts, fins, count
 
 
@@ -403,9 +467,10 @@ def sdust_device(seq: bytes, T: int = 20, W: int = DEF_W, core: int = 2048,
     sdust_pallas and to the sequential DP.
 
     stats: optional dict; the call adds its counts (chunks, overflow_rows,
-    host_span_bases) and its seconds per part (plan, h2d, kernel,
-    readback, overflow, host_spans, assemble) to it, synchronising the
-    card at the end of each part."""
+    host_span_bases, heavy_rows), its seconds per part (plan, h2d, kernel,
+    readback, overflow, host_spans, assemble) and the kernel's passes in
+    milliseconds (light_ms, heavy_ms) to it, synchronising the card at the
+    end of each part."""
     check_params(W, T)
     dev = resolve_device(device)
     acc = {} if stats is None else stats
@@ -428,7 +493,7 @@ def sdust_device(seq: bytes, T: int = 20, W: int = DEF_W, core: int = 2048,
         codes_t = torch.from_numpy(padded).to(dev)
         off_t = torch.from_numpy(a).to(dev)
         lap("h2d")
-        out = sdust_dp(codes_t, off_t, clen, T, W)
+        out = sdust_dp(codes_t, off_t, clen, T, W, stats=stats)
         lap("kernel")
         per_row, overflow = _row_lists(*out, max_intervals(clen))
         lap("readback")

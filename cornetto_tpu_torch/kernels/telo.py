@@ -12,6 +12,9 @@ is held to bit for bit: the tandem run is built with steps =
 ceil(log2(max(m // k, 1))) doubling passes, so it is capped at 2^steps
 copies (a read of L = 18 holding the motif 3 times reports 2), and
 ``terminal`` tests only the run that starts at position 0.
+
+``_steps_for`` and the host walk ``scan_runs_from_mask`` are copies of the
+JAX module's host helpers.
 """
 
 import ctypes
@@ -19,11 +22,33 @@ import ctypes
 import numpy as np
 import torch
 
-from cornetto_tpu.kernels.pallas_telo import _steps_for
 from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.kernels import _build
 
 _KERNEL = "telo"
+
+
+def _steps_for(m: int, k: int) -> int:
+    max_copies = max(m // k, 1)
+    return max(int(np.ceil(np.log2(max_copies))), 0)
+
+
+def scan_runs_from_mask(mask: np.ndarray, k: int):
+    """Reconstruct tools/telofind.scan_runs' greedy walk from a match mask:
+    next occurrence >= cursor, extend in k-steps while matching, resume at
+    end+1 (reference: src/find_telomere.c:44-74).  O(#matches), exact."""
+    idx = np.flatnonzero(mask)
+    pos = 0
+    out = []
+    for q in idx:
+        if q < pos:
+            continue
+        p = int(q)
+        while p < len(mask) and mask[p]:
+            p += k
+        out.append((int(q), p, p - int(q)))
+        pos = p + 1
+    return out
 
 
 def _check(codes, motif_codes):

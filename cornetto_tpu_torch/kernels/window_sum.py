@@ -8,7 +8,8 @@ for tensors on a CUDA device and runs the plain PyTorch version
 raises, never falls back.  ``window_stats`` is the boringbits window scan on
 top of it, equal to ``window_stats_numpy`` for every window size (sums are
 int64, so the JAX path's int32 limit of W <= 32767 does not apply).  PyTorch
-runs eagerly, so there are no padded jit buckets.
+runs eagerly, so there are no padded jit buckets.  ``n_windows`` and the
+exact host twin ``window_stats_numpy`` are copies of the JAX module's.
 """
 
 import ctypes
@@ -16,18 +17,43 @@ import ctypes
 import numpy as np
 import torch
 
-from cornetto_tpu.kernels.window_sum import n_windows
-from cornetto_tpu.utils import logging as log
 from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.kernels import _build
+from cornetto_tpu_torch.utils import logging as log
+from cornetto_tpu_torch.utils.cformat import c_div
 
 _KERNEL = "window_sum"
 _DTYPES = {torch.int32: 0, torch.uint16: 1}
 
 
+def n_windows(length: int, window_size: int, window_inc: int) -> int:
+    """Reference window count (src/boringbits_main.c:338-339): C truncating
+    division, clamped to >= 1."""
+    n = c_div(length - window_size + window_inc - 1, window_inc) + 1
+    return max(n, 1)
+
+
+def window_stats_numpy(depth: np.ndarray, mq_depth: np.ndarray,
+                       window_size: int, window_inc: int):
+    """Returns (st, end, mean_depth, mean_mq_depth) int32 arrays, exact."""
+    length = len(depth)
+    nw = n_windows(length, window_size, window_inc)
+    st = np.arange(nw, dtype=np.int64) * window_inc
+    end = np.minimum(st + window_size, length)
+    cs = np.zeros(length + 1, dtype=np.int64)
+    np.cumsum(depth.astype(np.int64), out=cs[1:])
+    cs_mq = np.zeros(length + 1, dtype=np.int64)
+    np.cumsum(mq_depth.astype(np.int64), out=cs_mq[1:])
+    div = end - st
+    d = (cs[end] - cs[st]) // div
+    mq = (cs_mq[end] - cs_mq[st]) // div
+    return (st.astype(np.int32), end.astype(np.int32),
+            d.astype(np.int32), mq.astype(np.int32))
+
+
 def resolve_backend(backend: str) -> str:
     """'auto' -> 'torch' on device.resolve_device() (raises without a card
-    unless CORNETTO_FORCE_CPU=1); 'numpy' keeps the shared host twin
+    unless CORNETTO_FORCE_CPU=1); 'numpy' keeps the host twin
     window_stats_numpy; 'jax' exits 1."""
     if backend == "jax":
         log.die("--backend jax is not available in cornetto_tpu_torch "

@@ -1,2 +1,2 @@
 """Adaptive-sampling decision loop on PyTorch (counterpart of
-``cornetto_tpu.livefish``; the index build and host layers are shared)."""
+``cornetto_tpu.livefish``, with its own copy of the host index build)."""

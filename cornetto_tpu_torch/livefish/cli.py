@@ -1,23 +1,78 @@
 """`cornetto livefish` subcommands on the PyTorch engine: counterpart of
-cornetto_tpu/livefish/cli.py.  ``run`` is ported; ``index`` and ``toml`` are
-host code and delegate to the JAX package's (JAX-free) implementations;
-``cov`` runs the port's coverage tally; ``replay`` is not ported yet."""
+cornetto_tpu/livefish/cli.py.  ``run`` and ``cov`` run the port's engine;
+``index`` (the native index build, written in the shared ``.npz`` format)
+and ``toml`` are copies of the JAX package's host commands; ``replay`` is
+not ported yet."""
 
 import sys
 
 import numpy as np
 
-from cornetto_tpu.livefish import cli as host_cli
-from cornetto_tpu.utils import logging as log
+from cornetto_tpu_torch.utils import logging as log
 
 NOT_PORTED = "not yet ported to cornetto_tpu_torch"
 
 
+def _load_index_or_die(path):
+    import os
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    f = path if path.endswith(".npz") else path + ".npz"
+    if not os.path.exists(f):
+        log.die("index not found: %s (build one with: cornetto livefish "
+                "index <draft.fasta> -o %s)" % (f, path))
+    return load_index(path)
+
+
+def _cmd_index(argv) -> int:
+    import getopt as _getopt
+    from cornetto_tpu_torch.dist.checkpoint import save_index
+    from cornetto_tpu_torch.io.bed import read_bed3
+    from cornetto_tpu_torch.io.fasta import read_fastx
+    from cornetto_tpu_torch.livefish.index import (build_index,
+                                                   build_panel_mask)
+    opts, args = _getopt.gnu_getopt(argv, "o:s:p:k:w:",
+                                    ["output=", "shards=", "panel=",
+                                     "kmer=", "window="])
+    out_path = "livefish_index"
+    shards = 1
+    panel_path = None
+    k, w = 15, 10
+    for flag, val in opts:
+        if flag in ("-o", "--output"):
+            out_path = val
+        elif flag in ("-s", "--shards"):
+            shards = int(val)
+        elif flag in ("-p", "--panel"):
+            panel_path = val
+        elif flag in ("-k", "--kmer"):
+            k = int(val)
+        elif flag in ("-w", "--window"):
+            w = int(val)
+    if len(args) != 1:
+        sys.stderr.write("Usage: cornetto livefish index <draft.fasta> "
+                         "[-o out] [-s shards] [-p panel.bed]\n")
+        return 1
+    # stream (name, seq) pairs: each contig string frees right after
+    # extraction instead of pinning the whole genome (~3 GB at 3 Gbp);
+    # keep_tables=False: the engine needs only btable — the padded
+    # per-shard tables triple RAM + checkpoint size at genome scale
+    idx = build_index(((rec.name, rec.seq) for rec in read_fastx(args[0])),
+                      n_shards=shards, k=k, w=w, keep_tables=False)
+    panel = None
+    if panel_path:
+        panel = build_panel_mask(idx, read_bed3(panel_path))
+    save_index(out_path, idx, panel_mask=panel)
+    log.info("index: %d shards x %d buckets x %d slots, %d contigs -> "
+             "%s.npz" % (idx.n_shards, idx.btable.shape[1],
+                         idx.bucket_slots, len(idx.contig_names), out_path))
+    return 0
+
+
 def _cmd_run(argv) -> int:
     import getopt as _getopt
-    from cornetto_tpu.io.bed import read_bed3
-    from cornetto_tpu.livefish.index import build_panel_mask
+    from cornetto_tpu_torch.io.bed import read_bed3
     from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    from cornetto_tpu_torch.livefish.index import build_panel_mask
     from cornetto_tpu_torch.livefish.stream import stream_decisions
     opts, args = _getopt.gnu_getopt(argv, "b:l:p:",
                                     ["batch=", "read-len=", "panel="])
@@ -34,7 +89,7 @@ def _cmd_run(argv) -> int:
         sys.stderr.write("Usage: cornetto livefish run <index> <reads.fastq> "
                          "[-b batch] [-l read_len] [-p panel.bed]\n")
         return 1
-    idx, panel, _ = host_cli._load_index_or_die(args[0])
+    idx, panel, _ = _load_index_or_die(args[0])
     if panel_path:
         panel = build_panel_mask(idx, read_bed3(panel_path))
     if panel is None:
@@ -80,7 +135,7 @@ def _cmd_cov(argv) -> int:
                          "<reads.fastq> [-o prefix] [-b batch] [-l read_len] "
                          "[-s bin] [-q hq_hits]\n")
         return 1
-    idx, panel, _ = host_cli._load_index_or_die(args[0])
+    idx, panel, _ = _load_index_or_die(args[0])
     if panel is None:
         # coverage needs decisions but no reject panel: accept everything
         panel = np.zeros((len(idx.contig_names), 128), dtype=bool)
@@ -97,6 +152,17 @@ def _cmd_cov(argv) -> int:
     return 0
 
 
+def _cmd_toml(argv) -> int:
+    from cornetto_tpu_torch.io.readfish import write_readfish_toml
+    if len(argv) != 2:
+        sys.stderr.write("Usage: cornetto livefish toml <ref.mmi> "
+                         "<targets.csv>\n")
+        return 1
+    write_readfish_toml(sys.stdout, reference_mmi=argv[0],
+                        targets_csv=argv[1])
+    return 0
+
+
 def main(argv) -> int:
     if not argv:
         sys.stderr.write(
@@ -104,13 +170,13 @@ def main(argv) -> int:
         return 1
     cmd, rest = argv[0], argv[1:]
     if cmd == "index":
-        return host_cli._cmd_index(rest)
+        return _cmd_index(rest)
     if cmd == "run":
         return _cmd_run(rest)
     if cmd == "cov":
         return _cmd_cov(rest)
     if cmd == "toml":
-        return host_cli._cmd_toml(rest)
+        return _cmd_toml(rest)
     if cmd == "replay":
         sys.stderr.write("livefish %s: %s\n" % (cmd, NOT_PORTED))
         return 1

@@ -7,18 +7,25 @@ The tally is a (2, C, bins) int32 tensor [total, hq] on
 device.resolve_device(), the engine's default device; every decided batch
 scatter-adds its read lengths into it with ``index_put_(...,
 accumulate=True)`` (integer atomics on a card, so the order does not
-matter and the sums are exact).  The bedgraph writer is the JAX module's
-host code.
+matter and the sums are exact).  ``CoverageParams`` and the bedgraph
+writer are copies of the JAX module's host code.
 """
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from cornetto_tpu.livefish import coverage as _host
-from cornetto_tpu.livefish.coverage import CoverageParams
 from cornetto_tpu_torch.device import resolve_device
 
 __all__ = ["CoverageParams", "CoverageTally", "stream_coverage"]
+
+
+@dataclass
+class CoverageParams:
+    bin_size: int = 1000
+    min_hits: int = 3       # mapped (total-coverage track)
+    hq_hits: int = 8        # high-confidence (the MQ>=20 track proxy)
 
 
 class CoverageTally:
@@ -64,8 +71,26 @@ class CoverageTally:
     def counts(self) -> np.ndarray:
         return self._tally.cpu().numpy()
 
-    # host code: bin-sized run-length rows from counts()
-    write_bedgraphs = _host.CoverageTally.write_bedgraphs
+    def write_bedgraphs(self, total_path: str, mq_path: str) -> None:
+        """Emit cov-total / cov-mq20 style bedgraphs (1-bp-resolution rows
+        are what boringbits expects; we emit bin-sized rows, which the
+        bedgraph reader expands identically)."""
+        t = self.counts()
+        bs = self.params.bin_size
+        for track, path in ((t[0], total_path), (t[1], mq_path)):
+            with open(path, "w") as out:
+                for ci, name in enumerate(self.contig_names):
+                    ln = int(self.contig_lens[ci])
+                    nb = -(-ln // bs)
+                    depth = track[ci, :nb] // bs
+                    # run-length encode equal-depth neighbouring bins
+                    st = 0
+                    for b in range(1, nb + 1):
+                        if b == nb or depth[b] != depth[st]:
+                            out.write("%s\t%d\t%d\t%d\n"
+                                      % (name, st * bs, min(b * bs, ln),
+                                         int(depth[st])))
+                            st = b
 
 
 def stream_coverage(engine, tally: CoverageTally, fastq_path: str,
@@ -73,11 +98,10 @@ def stream_coverage(engine, tally: CoverageTally, fastq_path: str,
     """Run streaming decisions over a FASTQ while folding every batch into
     the coverage tally; one batch stays in flight behind the one being read
     back.  Returns (n_reads, n_accepted)."""
-    from cornetto_tpu.kernels.minimizer import pack_reads
-    from cornetto_tpu.livefish.stream import (Prefetcher,
-                                              batches_from_fastq,
-                                              _has_interior_n)
-    from cornetto_tpu_torch.livefish.stream import _drain_host
+    from cornetto_tpu_torch.kernels.minimizer import pack_reads
+    from cornetto_tpu_torch.livefish.stream import (Prefetcher, _drain_host,
+                                                    _has_interior_n,
+                                                    batches_from_fastq)
     total = accepted = 0
     pending = None
 

@@ -20,12 +20,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cornetto_tpu.kernels.minimizer import pack_reads
-from cornetto_tpu.livefish.decide import DecisionParams
-from cornetto_tpu.livefish.index import MinimizerIndex
 from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.kernels.extract import extract_minima
-from cornetto_tpu_torch.kernels.minimizer import U32_MASK, as_u32
+from cornetto_tpu_torch.kernels.minimizer import U32_MASK, as_u32, pack_reads
+from cornetto_tpu_torch.livefish.index import MinimizerIndex
+
+
+@dataclass
+class DecisionParams:
+    min_hits: int = 3
+    bin_size: int = 1000
 
 
 @dataclass
@@ -206,13 +210,24 @@ def decision_core_packed_fused(btable, packed, nmask, panel_mask,
     row 0 = decision<<30 | min(nhits, 0x3FFF)<<16 | best_contig
     row 1 = est position
 
-    Decode on the host with cornetto_tpu.livefish.decide.unpack_fused."""
+    Decode on the host with ``unpack_fused``."""
     d, b, e, nh, _, _ = decision_core_packed(btable, packed, nmask,
                                              panel_mask, lengths=lengths,
                                              **kw)
     w0 = ((d.to(torch.int32) << 30) | (nh.clamp(max=0x3FFF) << 16)
           | (b & 0xFFFF))
     return torch.stack([w0, e])
+
+
+def unpack_fused(arr):
+    """Decode a host-side (2, B) fused result array back into
+    (decision, best_contig, est_pos, nhits) int32 vectors."""
+    w0 = np.asarray(arr[0])
+    est = np.asarray(arr[1])
+    d = (w0 >> 30) & 1
+    nhits = (w0 >> 16) & 0x3FFF
+    best = w0 & 0xFFFF
+    return d, best, est, nhits
 
 
 class SingleChipEngine:

@@ -1,7 +1,7 @@
 """Streaming FASTQ -> decision TSV loop for the PyTorch engine:
 counterpart of cornetto_tpu/livefish/stream.py.
 
-The host stages are shared with the JAX package (the native parse+pack
+The host stages are copies of the JAX package's (the native parse+pack
 kernel, Prefetcher, _RowWriter's native TSV formatter, the Python
 fallback's batching and row format).  What differs is the readback: the
 engine returns tensors on its device, and the drain side copies them to
@@ -15,14 +15,143 @@ import itertools
 import queue
 import sys
 import threading
-from typing import List, Tuple
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from cornetto_tpu.kernels.minimizer import pack_reads
-from cornetto_tpu.livefish.decide import unpack_fused
-from cornetto_tpu.livefish.stream import (Prefetcher, _drain, _has_interior_n,
-                                          _RowWriter, batches_from_fastq)
+from cornetto_tpu_torch.io.fasta import read_fastx
+from cornetto_tpu_torch.kernels.minimizer import encode_seq, pack_reads
+from cornetto_tpu_torch.livefish.decide import unpack_fused
+
+
+@dataclass
+class ReadBatch:
+    ids: List[str]
+    codes: np.ndarray   # (B, L) uint8, padded with 4 (N)
+    count: int          # valid rows
+    lengths: np.ndarray = None   # (B,) int32 true read lengths
+
+
+def batches_from_fastq(path: str, batch: int, read_len: int
+                       ) -> Iterator[ReadBatch]:
+    """Pack the first `read_len` bases of each read (the adaptive-sampling
+    chunk) into fixed (batch, read_len) blocks."""
+    ids: List[str] = []
+    codes = np.full((batch, read_len), 4, dtype=np.uint8)
+    lens = np.zeros(batch, dtype=np.int32)
+    n = 0
+    for rec in read_fastx(path):
+        c = encode_seq(rec.seq[:read_len])
+        codes[n, :len(c)] = c
+        lens[n] = len(c)
+        ids.append(rec.name)
+        n += 1
+        if n == batch:
+            yield ReadBatch(ids, codes, n, lens)
+            ids = []
+            codes = np.full((batch, read_len), 4, dtype=np.uint8)
+            lens = np.zeros(batch, dtype=np.int32)
+            n = 0
+    if n:
+        yield ReadBatch(ids, codes, n, lens)
+
+
+class Prefetcher:
+    """Producer thread + bounded queue so host packing overlaps device
+    compute."""
+
+    _DONE = object()
+
+    def __init__(self, it: Iterator[ReadBatch], depth: int = 4):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._thread = threading.Thread(target=self._fill, args=(it,),
+                                        daemon=True)
+        self._err: Optional[BaseException] = None
+        self._thread.start()
+
+    def _fill(self, it):
+        try:
+            for b in it:
+                self._q.put(b)
+        except BaseException as e:  # propagate to consumer
+            self._err = e
+        finally:
+            self._q.put(self._DONE)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._DONE:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item
+
+
+class _RowWriter:
+    """FIFO formatting+writing thread: keeps TSV formatting off the device
+    dispatch thread.  Batches carrying a compact id blob format natively
+    (tsv_format.c releases the GIL, ~10M rows/s); others take the Python
+    row loop (byte-identical output, tested)."""
+
+    _DONE = object()
+
+    def __init__(self, out, names):
+        from cornetto_tpu_torch.native import tsv_format as _tf
+        self._out = out
+        self._names = names
+        self._tf = _tf if _tf.available() else None
+        self._ntable = _tf.NameTable(names) if self._tf else None
+        self._q: "queue.Queue" = queue.Queue(maxsize=8)
+        self.total = self.accepted = 0
+        self._err = None
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def put(self, pb, arrs) -> None:
+        if self._err is not None:
+            raise self._err
+        self._q.put((pb, arrs))
+
+    def _run(self):
+        try:
+            while True:
+                item = self._q.get()
+                if item is self._DONE:
+                    return
+                pb, arrs = item
+                d, best, est, nhits = arrs[:4]
+                if self._tf is not None and \
+                        getattr(pb, "id_blob", None) is not None:
+                    data, acc = self._tf.format_batch(
+                        pb.id_blob, pb.id_off, pb.id_len,
+                        d, best, est, nhits, self._ntable, pb.count)
+                    self._out.write(data.decode("ascii"))
+                    self.accepted += acc
+                    self.total += pb.count
+                    continue
+                names = self._names
+                rows = []
+                for i in range(pb.count):
+                    ctg = (names[best[i]] if names is not None
+                           else str(int(best[i])))
+                    rows.append("%s\t%s\t%s\t%d\t%d\n"
+                                % (pb.ids[i],
+                                   "proceed" if d[i] else "unblock",
+                                   ctg if nhits[i] > 0 else ".",
+                                   int(est[i]), int(nhits[i])))
+                    self.accepted += int(d[i])
+                self._out.write("".join(rows))
+                self.total += pb.count
+        except BaseException as e:
+            self._err = e
+
+    def close(self):
+        self._q.put(self._DONE)
+        self._t.join()
+        if self._err is not None:
+            raise self._err
 
 
 def _to_host(t) -> np.ndarray:
@@ -44,8 +173,8 @@ def stream_decisions(engine, fastq_path: str, batch: int = 4096,
     anything else (FASTA, multi-line records, no C toolchain) the tolerant
     Python path — as cornetto_tpu.livefish.stream.stream_decisions."""
     out = out or sys.stdout
-    from cornetto_tpu.native.fastq_pack import (NativeParseError,
-                                                iter_packed_batches)
+    from cornetto_tpu_torch.native.fastq_pack import (NativeParseError,
+                                                      iter_packed_batches)
     gen = iter_packed_batches(fastq_path, batch, read_len)
     try:
         # probe the first batch before any output: a non-FASTQ file falls
@@ -141,3 +270,24 @@ def _stream_decisions_py(engine, fastq_path: str, batch: int,
 def _drain_host(entry, out, total, accepted, engine):
     rb, res = _readback(entry)
     return _drain(rb, res, out, total, accepted, engine)
+
+
+def _has_interior_n(rb: ReadBatch) -> bool:
+    pos = np.arange(rb.codes.shape[1], dtype=np.int32)
+    within = pos[None, :] < rb.lengths[:, None]
+    return bool(np.any((rb.codes >= 4) & within))
+
+
+def _drain(rb: ReadBatch, res, out, total, accepted, engine):
+    d, best, est, nhits = (np.asarray(x) for x in res[:4])
+    names = getattr(engine, "contig_names", None)
+    for i in range(rb.count):
+        ctg = (names[best[i]] if names is not None else str(int(best[i])))
+        out.write("%s\t%s\t%s\t%d\t%d\n"
+                  % (rb.ids[i],
+                     "proceed" if d[i] else "unblock",
+                     ctg if nhits[i] > 0 else ".",
+                     int(est[i]), int(nhits[i])))
+        total += 1
+        accepted += int(d[i])
+    return total, accepted

@@ -1,2 +1,2 @@
-"""Panel pipelines of the port (counterparts of ``cornetto_tpu.pipelines``;
-the interval algebra and writers are shared)."""
+"""Panel pipelines of the port (counterparts of ``cornetto_tpu.pipelines``):
+create-panel and a copy of telostats."""

@@ -5,8 +5,8 @@ The same in-memory replacement of the reference shell pipeline
 (reference: scripts/create-cornetto.sh), writing the same
 tmp_create_cornetto/ intermediates; the interesting windows come from the
 port's ``tools.boringbits.iter_fun_windows`` (the CUDA window-sum kernel on
-a card).  The interval algebra, bigenough and the BED writers are the JAX
-package's host code.
+a card).  The interval algebra, bigenough and the BED helpers below are
+copies of the JAX package's host code.
 """
 
 import os
@@ -14,16 +14,45 @@ import sys
 import time
 from typing import List
 
-from cornetto_tpu.intervals import algebra
-from cornetto_tpu.io.fasta import read_fastx
-from cornetto_tpu.pipelines.create_cornetto import (_write, contig_edges,
-                                                    extend_funbits)
-from cornetto_tpu.tools import bigenough as bigenough_tool
-from cornetto_tpu.utils import logging as log
+from cornetto_tpu_torch.intervals import algebra
+from cornetto_tpu_torch.io.fasta import read_fastx
+from cornetto_tpu_torch.tools import bigenough as bigenough_tool
 from cornetto_tpu_torch.tools.boringbits import (BoringbitsOptions,
                                                  iter_fun_windows)
+from cornetto_tpu_torch.utils import logging as log
 
 Row = algebra.Row
+
+
+def _write(path: str, rows) -> None:
+    with open(path, "w") as f:
+        for c, s, e in rows:
+            f.write("%s\t%d\t%d\n" % (c, s, e))
+
+
+def extend_funbits(rows: List[Row], minpos: int, ext_left: int,
+                   ext_right: int) -> List[Row]:
+    """The awk extension with its quirk: rows with start <= minpos are kept
+    entirely unextended (reference: scripts/create-cornetto.sh:53,
+    scripts/recreate-cornetto.sh:36 — note recreate's asymmetric -40k/+50k)."""
+    out = []
+    for c, s, e in rows:
+        if s > minpos:
+            out.append((c, s - ext_left, e + ext_right))
+        else:
+            out.append((c, s, e))
+    return out
+
+
+def contig_edges(assbed: List[Row], edge: int = 200000) -> List[Row]:
+    """200-kb windows at both contig ends for contigs longer than edge
+    (reference: scripts/create-cornetto.sh:56)."""
+    out = []
+    for c, s, e in assbed:
+        if e - s > edge:
+            out.append((c, 0, edge))
+            out.append((c, e - edge, e))
+    return out
 
 
 def _premerged_fun_windows(bgtotal: str, bgmq20: str, opt, raw_path: str):

@@ -1,2 +1,3 @@
-"""Host tools of the port whose scan runs on the device (counterparts of
-``cornetto_tpu.tools``; parsers and printers are shared)."""
+"""The port's tools (counterparts of ``cornetto_tpu.tools``): boringbits,
+sdust and telofind with their scans on the device, and copies of the host
+tools telowin, telobreaks and bigenough."""

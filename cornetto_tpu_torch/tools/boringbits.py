@@ -4,27 +4,142 @@ cornetto_tpu/tools/boringbits.py.
 The four scan functions (``run``, ``_run_streaming``, ``iter_fun_windows``,
 ``_iter_fun_windows_streaming``) and ``main`` are the JAX module's, with the
 window scan on the port's ``kernels.window_sum.window_stats`` (the CUDA
-window-sum kernel on a card) instead of window_stats_jax.  The parsers,
-thresholds, printing and help text are the JAX module's host code, so the
-output stays byte-identical to the C tool's.  The uint16 tracks go to the
-card as they are.
+window-sum kernel on a card) instead of window_stats_jax.  The options,
+thresholds, printers and help text are copies of the JAX module's host
+code, so the output stays byte-identical to the C tool's.  The uint16
+tracks go to the card as they are.
 """
 
 import sys
+from dataclasses import dataclass
 
 import numpy as np
 
-from cornetto_tpu.io.bed import read_bedgraph_pair
-from cornetto_tpu.kernels.window_sum import window_stats_numpy
-from cornetto_tpu.tools.boringbits import (BoringbitsOptions, _help,
-                                           _prefetch, _print_boring,
-                                           _print_fun, _violations,
-                                           _want_low_mem)
-from cornetto_tpu.utils import logging as log
-from cornetto_tpu.utils.cformat import c_round
-from cornetto_tpu_torch.kernels.window_sum import resolve_backend, window_stats
+from cornetto_tpu_torch.io.bed import read_bedgraph_pair
+from cornetto_tpu_torch.kernels.window_sum import (resolve_backend,
+                                                   window_stats,
+                                                   window_stats_numpy)
+from cornetto_tpu_torch.utils import logging as log
+from cornetto_tpu_torch.utils.cformat import c_round
 
 __all__ = ["BoringbitsOptions", "run", "iter_fun_windows", "main"]
+
+
+@dataclass
+class BoringbitsOptions:
+    window_size: int = 2500
+    window_inc: int = 50
+    low_cov_thresh: float = 0.4
+    high_cov_thresh: float = 2.5
+    low_mq_cov_thresh: float = 0.4
+    min_ctg_len: int = 1000000
+    edge_len: int = 100000
+    boring: bool = True
+    backend: str = "auto"  # "auto" | "numpy" ("jax" exits 1)
+    # two-pass streaming: pass 1 scans sums/means with NO depth storage,
+    # pass 2 re-parses yielding one contig pair at a time — peak memory
+    # drops from 2 B/base held for the whole genome to the largest
+    # contig, at the cost of parsing the tracks twice.  "auto" (default)
+    # enables it for plain-text pairs over ~4 GB, where the second parse
+    # is cheap (500 Mbp measured: 67 s / 0.7 GB two-pass vs 54 s /
+    # 2.3 GB in-memory vs reference C 227 s / 2.0 GB); gz tracks pay the
+    # inflate twice, so they stay in-memory unless forced
+    low_mem: str = "auto"   # "auto" | "yes" | "no"
+    # accept run-length bedgraph rows (aligner-free approx-panel tracks
+    # from livefish.coverage); the strict default is reference parity
+    ranged_bedgraph: bool = False
+
+
+def _want_low_mem(opt: BoringbitsOptions, ct: str, cm: str) -> bool:
+    if opt.ranged_bedgraph or opt.low_mem in (False, "no"):
+        return False
+    if opt.low_mem in (True, "yes"):
+        return True
+    import os as _os
+    from cornetto_tpu_torch.io.bed import _is_gzip
+    try:
+        big = _os.path.getsize(ct) + _os.path.getsize(cm) > (4 << 30)
+        return big and not _is_gzip(ct) and not _is_gzip(cm)
+    except OSError:
+        return False
+
+
+def _prefetch(gen, depth: int = 2):
+    """Run a generator on its own thread with a small queue so the two
+    per-contig track streams parse concurrently (peak memory grows by at
+    most `depth` extra contigs).  Worker failures (including the
+    SystemExit a parse error raises) are re-raised in the consumer — a
+    swallowed pass-2 error would end the zip early and emit TRUNCATED
+    output with exit status 0."""
+    import queue
+    import threading
+    q = queue.Queue(maxsize=depth)
+    DONE = object()
+    err = []
+
+    def work():
+        try:
+            for item in gen:
+                q.put(item)
+        except BaseException as e:
+            err.append(e)
+        finally:
+            q.put(DONE)
+
+    threading.Thread(target=work, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is DONE:
+            if err:
+                raise err[0]
+            return
+        yield item
+
+
+def _violations(st, end, d, mq, thresh_low, thresh_high, low_mq_factor):
+    # mq/depth < factor with C double division against a C *float* threshold
+    # (promoted to double — src/boringbits_main.c:439); depth==0 gives
+    # inf/nan: 0/0.0 is NaN (comparison false), x/0.0 is +inf (false).
+    factor = float(np.float32(low_mq_factor))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = mq.astype(np.float64) / d.astype(np.float64)
+        low_mq = ratio < factor
+        low_mq = np.where(np.isnan(ratio), False, low_mq)
+    return (d < thresh_low) | (d > thresh_high) | low_mq
+
+
+def _print_fun(out, name, ctg_len, st, end, d, mq, thresh_low, thresh_high,
+               opt: BoringbitsOptions):
+    # reference: print_fun_bits (src/boringbits_main.c:425-445).  NB quirk:
+    # small contigs print 0..min_ctg_len even when shorter than that.
+    if ctg_len < opt.min_ctg_len:
+        out.write("%s\t%d\t%d\t.\t.\n" % (name, 0, opt.min_ctg_len))
+        return
+    out.write("%s\t%d\t%d\t.\t.\n" % (name, 0, opt.edge_len))
+    out.write("%s\t%d\t%d\t.\t.\n" % (name, ctg_len - opt.edge_len, ctg_len))
+    viol = _violations(st, end, d, mq, thresh_low, thresh_high,
+                       opt.low_mq_cov_thresh)
+    idx = np.flatnonzero(viol)
+    if len(idx):
+        out.write("".join("%s\t%d\t%d\t%d\t%d\n"
+                          % (name, st[j], end[j], d[j], mq[j])
+                          for j in idx))
+
+
+def _print_boring(out, name, ctg_len, st, end, d, mq, thresh_low, thresh_high,
+                  opt: BoringbitsOptions):
+    # reference: print_boring_bits (src/boringbits_main.c:463-481)
+    if ctg_len <= opt.min_ctg_len:
+        return
+    viol = _violations(st, end, d, mq, thresh_low, thresh_high,
+                       opt.low_mq_cov_thresh)
+    inner = (st > opt.edge_len) & (end < ctg_len - opt.edge_len)
+    keep = inner & ~viol
+    idx = np.flatnonzero(keep)
+    if len(idx):
+        out.write("".join("%s\t%d\t%d\t%d\t%d\n"
+                          % (name, st[j], end[j], d[j], mq[j])
+                          for j in idx))
 
 
 def _stats_fn(opt: BoringbitsOptions):
@@ -91,7 +206,7 @@ def _scan_pair(cov_total_path: str, cov_mq_path: str):
     parser release the GIL, so they overlap); None when the native kernel
     is missing."""
     from concurrent.futures import ThreadPoolExecutor
-    from cornetto_tpu.io.bed import scan_depth_track
+    from cornetto_tpu_torch.io.bed import scan_depth_track
     with ThreadPoolExecutor(2) as ex:
         fa = ex.submit(scan_depth_track, cov_total_path)
         fb = ex.submit(scan_depth_track, cov_mq_path)
@@ -106,7 +221,7 @@ def _scan_pair(cov_total_path: str, cov_mq_path: str):
 
 def _iter_pass2(cov_total_path: str, cov_mq_path: str, names, lens):
     """Pass 2: one contig pair at a time; never ends early unnoticed."""
-    from cornetto_tpu.io.bed import iter_depth_contigs
+    from cornetto_tpu_torch.io.bed import iter_depth_contigs
     n_done = 0
     for item in zip(names,
                     _prefetch(iter_depth_contigs(cov_total_path, lens)),
@@ -213,7 +328,8 @@ def main(argv, boring: bool) -> int:
     """CLI entry matching `cornetto boringbits|noboringbits`
     (reference: src/boringbits_main.c:558-660)."""
     import getopt as _getopt
-    from cornetto_tpu.utils.parsing import parse_num_suffix, c_atoi, c_atof
+    from cornetto_tpu_torch.utils.parsing import (c_atof, c_atoi,
+                                                  parse_num_suffix)
     opt = BoringbitsOptions(boring=boring)
     covmq = None
     fp_help = sys.stderr
@@ -252,7 +368,7 @@ def main(argv, boring: bool) -> int:
         elif flag == "--low-mem":
             opt.low_mem = "yes"
         elif flag in ("-V", "--version"):
-            from cornetto_tpu.version import __version__
+            from cornetto_tpu_torch.version import __version__
             sys.stdout.write("cornetto-tpu %s\n" % __version__)
             return 0
         elif flag in ("-h", "--help"):
@@ -264,3 +380,18 @@ def main(argv, boring: bool) -> int:
         return 0 if fp_help is sys.stdout else 1
     run(args[0], covmq, opt)
     return 0
+
+
+def _help(fp, opt: BoringbitsOptions):
+    fp.write("Usage: cornetto boringbits cov-total.bg -q cov-mq20.bg\n")
+    fp.write("\nbasic options:\n")
+    fp.write("   -q FILE                    depth file with high mapq read coverage\n")
+    fp.write("   -w INT                     window size [%d]\n" % opt.window_size)
+    fp.write("   -i INT                     window increment [%d]\n" % opt.window_inc)
+    fp.write("   -L FLOAT                   low coverage threshold factor [%.1f]\n" % opt.low_cov_thresh)
+    fp.write("   -H FLOAT                   high coverage threshold factor [%.1f]\n" % opt.high_cov_thresh)
+    fp.write("   -Q FLOAT                   mapq low coverage threshold factor [%.1f]\n" % opt.low_mq_cov_thresh)
+    fp.write("   -m INT                     minimum contig length [%d]\n" % opt.min_ctg_len)
+    fp.write("   -e INT                     edge length to ignore [%d]\n" % opt.edge_len)
+    fp.write("   -h                         help\n")
+    fp.write("   --verbose INT              verbosity level [%d]\n" % log.get_log_level())

@@ -1,37 +1,42 @@
 """sdust on the port: counterpart of cornetto_tpu/tools/sdust.py.
 
-``--backend device`` runs the SDUST DP of each contig on the port's device
-(``kernels.sdust.sdust_device``: the CUDA kernel on a card, its plain
-PyTorch version under CORNETTO_FORCE_CPU=1); ``host`` (the default) is the
-JAX package's native thread-pool path, called as it is.  The device DP
+``--backend device`` (the default) runs the SDUST DP of each contig on the
+port's device (``kernels.sdust.sdust_device``: the CUDA kernel on a card,
+its plain PyTorch version under CORNETTO_FORCE_CPU=1, an error with
+neither); ``--backend host`` runs the native sequential DP
+(``native.sdust``) on a thread pool, as the JAX package's host backend
+does.  The device DP
 takes 3 <= W <= 66 (its ring holds 64 words) and T >= 5 (below, the JAX
 kernel's DP departs from the sequential one): any other -w or -t exits 1
 with the limit, it does not switch to the host.  Rows are byte-identical
 to the reference C tool's.
 """
 
+import os
 import sys
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
-from cornetto_tpu.io.fasta import read_fastx
-from cornetto_tpu.tools import sdust as host_sdust
-from cornetto_tpu.utils.parsing import c_atoi
 from cornetto_tpu_torch.device import resolve_device
+from cornetto_tpu_torch.io.fasta import read_fastx
 from cornetto_tpu_torch.kernels.sdust import check_params, sdust_device
+from cornetto_tpu_torch.native.sdust import sdust
+from cornetto_tpu_torch.utils.parsing import c_atoi
 
 CORE = 2048      # chunk core of the device DP (sdust_pallas' default)
 
 
 def run(fasta_path: str, T: int = 20, W: int = 64, out=None,
-        workers: int = None, backend: str = "host",
+        workers: int = None, backend: str = "device",
         stats: dict = None) -> None:
     """backend "device": one sdust_device call per contig with a chunk core
     of CORE, serial over contigs (the chunks are the parallel axis), its
     counts and per-part seconds added to ``stats`` if given (which
     synchronises the card at the end of each part); anything else is the
-    shared host path."""
+    host path."""
     out = out or sys.stdout
     if backend != "device":
-        host_sdust.run(fasta_path, T=T, W=W, out=out, workers=workers)
+        _run_host(fasta_path, T, W, out, workers)
         return
     dev = resolve_device()
     for rec in read_fastx(fasta_path):
@@ -42,9 +47,35 @@ def run(fasta_path: str, T: int = 20, W: int = 64, out=None,
                               for a, b in ivals))
 
 
+def _run_host(fasta_path: str, T: int, W: int, out, workers) -> None:
+    """The native DP over contigs on a thread pool (the ctypes call
+    releases the GIL), with a bounded in-flight window so memory stays at
+    O(workers) contigs; rows are written in FASTA order."""
+    nw = workers or os.cpu_count() or 1
+
+    def _mask(item):
+        name, seq = item
+        return name, sdust(seq.encode("latin-1"), T=T, W=W)
+
+    def _emit(fut_name_ivals):
+        name, ivals = fut_name_ivals.result()
+        if ivals:
+            out.write("".join("%s\t%d\t%d\n" % (name, a, b)
+                              for a, b in ivals))
+
+    with ThreadPoolExecutor(max_workers=nw) as ex:
+        inflight = deque()
+        for rec in read_fastx(fasta_path):
+            inflight.append(ex.submit(_mask, (rec.name, rec.seq)))
+            while len(inflight) > 2 * nw:
+                _emit(inflight.popleft())
+        while inflight:
+            _emit(inflight.popleft())
+
+
 def main(argv) -> int:
     W, T = 64, 20
-    backend = "host"
+    backend = "device"
     args = []
     i = 0
     while i < len(argv):
@@ -65,6 +96,9 @@ def main(argv) -> int:
     if not args:
         sys.stderr.write("Usage: sdust [-w %d] [-t %d] "
                          "[--backend host|device] <in.fa>\n" % (W, T))
+        return 1
+    if backend not in ("host", "device"):
+        sys.stderr.write("Error: --backend must be host or device\n")
         return 1
     if backend == "device":
         try:

@@ -1,32 +1,50 @@
 """telofind on the port: counterpart of cornetto_tpu/tools/telofind.py.
 
-``--backend device`` (or CORNETTO_TELOFIND_DEVICE=1) finds the motif's
-matches with the port's mask kernel (``kernels.telo.telo_match_mask_long``:
-one upload of each contig, one launch per strand, the CUDA kernel on a
-card) and rebuilds the rows on the host with the JAX package's
-``scan_runs_from_mask``; ``host`` is the JAX package's memchr scan.  A motif
-with a letter other than ACGT takes the host scan, as in the JAX package
-(the mask kernel cannot express it).  Rows are byte-identical to the
+``--backend device`` (the default) finds the motif's matches with the
+port's mask kernel (``kernels.telo.telo_match_mask_long``: one upload of
+each contig, one launch per strand, the CUDA kernel on a card, its plain
+version under CORNETTO_FORCE_CPU=1, an error with neither) and rebuilds the
+rows on the host with ``scan_runs_from_mask``; ``--backend host`` is the
+memchr scan ``scan_runs`` (a copy of the JAX package's).
+A motif with a letter other than ACGT takes the host scan, as in the JAX
+package (the mask kernel cannot express it).  Rows are byte-identical to the
 reference C tool's: forward then reverse-complement hits per contig,
 sequences uppercased.  No jax is imported.
 """
 
-import os
 import sys
 
 import torch
 
-from cornetto_tpu.io.fasta import read_fastx
-from cornetto_tpu.kernels.minimizer import encode_seq
-from cornetto_tpu.kernels.motif import revcomp_motif
-from cornetto_tpu.kernels.pallas_telo import scan_runs_from_mask
-from cornetto_tpu.tools.telofind import scan_runs
 from cornetto_tpu_torch.device import resolve_device
-from cornetto_tpu_torch.kernels.telo import telo_match_mask_long
+from cornetto_tpu_torch.io.fasta import read_fastx
+from cornetto_tpu_torch.kernels.minimizer import encode_seq
+from cornetto_tpu_torch.kernels.motif import revcomp_motif
+from cornetto_tpu_torch.kernels.telo import (scan_runs_from_mask,
+                                             telo_match_mask_long)
+
+
+def scan_runs(seq: bytes, motif: bytes):
+    """Left-to-right scan-cursor over bytes.find (memchr-fast, the same
+    access pattern as the reference's strstr loop): yields maximal exact
+    tandem runs (start, end, matched_len)."""
+    k = len(motif)
+    pos = 0
+    while True:
+        pos = seq.find(motif, pos)
+        if pos < 0:
+            return
+        start = pos
+        length = 0
+        while seq[pos:pos + k] == motif:
+            pos += k
+            length += k
+        yield (start, pos, length)
+        pos += 1
 
 
 def run(fasta_path: str, motif: str = "TTAGGG", out=None,
-        backend: str = "host") -> None:
+        backend: str = "device") -> None:
     out = out or sys.stdout
     rmotif = revcomp_motif(motif)
     dev = resolve_device() if backend == "device" else None
@@ -53,8 +71,7 @@ def run(fasta_path: str, motif: str = "TTAGGG", out=None,
 
 def main(argv) -> int:
     args = argv[1:] if argv and argv[0] == "telofind" else argv
-    backend = "device" if os.environ.get("CORNETTO_TELOFIND_DEVICE") \
-        else "host"
+    backend = "device"
     pos = []
     i = 0
     while i < len(args):

@@ -1,10 +1,10 @@
 """The annotation chain through the port's CLI (cornetto_tpu_torch.cli):
 sdust, telofind, telowin and telobreaks under CORNETTO_FORCE_CPU=1 against
 test_data/golden (the reference C tool's outputs, byte for byte), the
-device backends against the host ones, and the entry points' freedom from
-jax.  The device DP's chunk core is cut to its smallest (2W) here so the
-plain lane-parallel DP stays fast on the CPU; the result does not depend
-on it."""
+device backends (the default) and the host ones, and the entry points'
+freedom from jax.  The device DP's chunk core is cut to its smallest (2W)
+here so the plain lane-parallel DP stays fast on the CPU; the result does
+not depend on it."""
 
 import contextlib
 import io
@@ -31,7 +31,6 @@ def _cli(argv):
 @pytest.fixture
 def cpu(monkeypatch):
     monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
-    monkeypatch.delenv("CORNETTO_TELOFIND_DEVICE", raising=False)
     monkeypatch.setattr(tsdust, "CORE", 128)
     # the plain DP's small ops gain nothing from intra-op threads, and the
     # suite's parallel workers would oversubscribe the cores with them
@@ -46,7 +45,9 @@ def cpu(monkeypatch):
     ("sdust.txt", ["--backend", "device"]),
     ("sdust_w32t14.txt", ["-w", "32", "-t", "14"]),
     ("sdust_w32t14.txt", ["-w", "32", "-t", "14", "--backend", "device"]),
-    ("sdust_w32t14.txt", ["-w32", "-t14", "--backend=device"])])
+    ("sdust_w32t14.txt", ["-w32", "-t14", "--backend=device"]),
+    ("sdust.txt", ["--backend", "host"]),
+    ("sdust_w32t14.txt", ["-w", "32", "-t", "14", "--backend", "host"])])
 def test_sdust_golden(cpu, synth, gold, golden, args):
     rc, out, err = _cli(["sdust"] + args + [str(synth / "asm.fasta")])
     assert rc == 0, err
@@ -74,8 +75,11 @@ def test_sdust_device_rejects_wide_window_and_low_threshold(cpu, synth):
     rc, out, err = _cli(["sdust", "-t", "4", "--backend", "device",
                          str(synth / "asm.fasta")])
     assert rc == 1 and out == "" and "T=4 is below 5" in err
+    # the default backend is the device one, with the same limits
+    rc, out, err = _cli(["sdust", "-w", "67", str(synth / "asm.fasta")])
+    assert rc == 1 and out == "" and "W=67 is outside 3..66" in err
     # the host DP takes any window and threshold
-    rc, out, _ = _cli(["sdust", "-w", "67", "-t", "4",
+    rc, out, _ = _cli(["sdust", "-w", "67", "-t", "4", "--backend", "host",
                        str(synth / "asm.fasta")])
     assert rc == 0 and out
 
@@ -85,7 +89,9 @@ def test_sdust_device_rejects_wide_window_and_low_threshold(cpu, synth):
     ("telofind.txt", ["--backend", "device"]),
     ("telofind.txt", ["--backend=device"]),
     ("telofind_ccctaa.txt", ["CCCTAA"]),
-    ("telofind_ccctaa.txt", ["CCCTAA", "--backend", "device"])])
+    ("telofind_ccctaa.txt", ["CCCTAA", "--backend", "device"]),
+    ("telofind.txt", ["--backend", "host"]),
+    ("telofind_ccctaa.txt", ["CCCTAA", "--backend=host"])])
 def test_telofind_golden(cpu, synth, gold, golden, args):
     rc, out, err = _cli(["telofind", str(synth / "asm.fasta")] + args)
     assert rc == 0, err
@@ -93,17 +99,53 @@ def test_telofind_golden(cpu, synth, gold, golden, args):
 
 
 def test_telofind_env_switch_and_bad_backend(cpu, monkeypatch, synth, gold):
+    """No switch is needed for the mask kernel: it is the default backend
+    (the JAX package's CORNETTO_TELOFIND_DEVICE is not read); --backend
+    host takes the memchr scan; any other backend exits 1."""
     from cornetto_tpu_torch.kernels import telo
     calls = []
     real = telo.telo_match_mask
     monkeypatch.setattr(telo, "telo_match_mask",
                         lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setenv("CORNETTO_TELOFIND_DEVICE", "1")
     rc, out, _ = _cli(["telofind", str(synth / "asm.fasta")])
     assert rc == 0 and out == (gold / "telofind.txt").read_text()
     assert len(calls) == 8                      # 4 contigs x 2 strands
+    rc, out, _ = _cli(["telofind", str(synth / "asm.fasta"), "--backend",
+                       "host"])
+    assert rc == 0 and out == (gold / "telofind.txt").read_text()
+    assert len(calls) == 8
     rc, out, err = _cli(["telofind", str(synth / "asm.fasta"), "--backend",
                          "nope"])
+    assert rc == 1 and out == "" and "host or device" in err
+
+
+def test_default_backends_reach_the_device_kernels(cpu, monkeypatch, synth,
+                                                   gold):
+    """sdust and telofind with no --backend run their DP and mask on the
+    port's device (sdust_device, telo_match_mask_long); --backend host
+    reaches neither; an unknown backend exits 1."""
+    from cornetto_tpu_torch.tools import telofind as ttf
+    calls = {"sdust": 0, "telo": 0}
+
+    def spy(name, real):
+        def f(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return f
+    monkeypatch.setattr(tsdust, "sdust_device",
+                        spy("sdust", tsdust.sdust_device))
+    monkeypatch.setattr(ttf, "telo_match_mask_long",
+                        spy("telo", ttf.telo_match_mask_long))
+    fasta = str(synth / "asm.fasta")
+    rc, out, _ = _cli(["sdust", fasta])
+    assert rc == 0 and out == (gold / "sdust.txt").read_text()
+    rc, out, _ = _cli(["telofind", fasta])
+    assert rc == 0 and out == (gold / "telofind.txt").read_text()
+    assert calls == {"sdust": 4, "telo": 8}     # 4 contigs, 2 strands each
+    assert _cli(["sdust", "--backend", "host", fasta])[0] == 0
+    assert _cli(["telofind", fasta, "--backend", "host"])[0] == 0
+    assert calls == {"sdust": 4, "telo": 8}
+    rc, out, err = _cli(["sdust", "--backend", "nope", fasta])
     assert rc == 1 and out == "" and "host or device" in err
 
 
@@ -113,7 +155,7 @@ def test_telofind_non_acgt_motif_scans_on_host(cpu, tmp_path):
     fa = tmp_path / "n.fa"
     fa.write_text(">c\nACGTTTNGGGTTNGGGAATTNGGG\n>d\nNNNN\n")
     outs = [_cli(["telofind", str(fa), "TTNGGG"] + b)[1]
-            for b in ([], ["--backend", "device"])]
+            for b in (["--backend", "host"], [])]
     assert outs[0] == outs[1] and outs[0].count("\n") == 2
 
 
@@ -166,8 +208,8 @@ def test_usage_lists_annotation_commands(capsys):
 
 def test_annotation_imports_no_jax(tmp_path, synth, gold):
     """sdust and telofind on their device backends, and telobreaks, through
-    the port's CLI leave jax out of sys.modules (a fresh interpreter: the
-    test process itself has jax loaded)."""
+    the port's CLI leave jax and the JAX package out of sys.modules (a fresh
+    interpreter: the test process itself has both loaded)."""
     code = (
         "import contextlib, io, sys\n"
         "from cornetto_tpu_torch.cli import main\n"
@@ -183,7 +225,8 @@ def test_annotation_imports_no_jax(tmp_path, synth, gold):
         " gold + '/sdust.txt', gold + '/telomere.txt']) == 0\n"
         "assert 'torch' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m.startswith('jaxlib'))\n"
+        "m.startswith('jax.') or m.startswith('jaxlib') or "
+        "m == 'cornetto_tpu' or m.startswith('cornetto_tpu.'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, CORNETTO_FORCE_CPU="1", OMP_NUM_THREADS="1")
     proc = subprocess.run(

@@ -126,8 +126,8 @@ def test_aligned_flow_runs_port_panel(tmp_path):
 
 def test_panel_path_imports_no_jax(tmp_path, synth):
     """`flow`, `livefish cov`, `create-panel` and `noboringbits` through the
-    port's CLI leave jax out of sys.modules (a fresh interpreter: the test
-    process itself has jax loaded)."""
+    port's CLI leave jax and the JAX package out of sys.modules (a fresh
+    interpreter: the test process itself has both loaded)."""
     fasta, reads = _setup(tmp_path, big_len=1_200_000, small_len=100_000,
                           depth=2, seed=5)
     cfg = tmp_path / "cfg.json"
@@ -152,7 +152,8 @@ def test_panel_path_imports_no_jax(tmp_path, synth):
         " '/cov-total.bg', '-q', synth + '/cov-mq20.bg']) == 0\n"
         "assert 'torch' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m.startswith('jaxlib'))\n"
+        "m.startswith('jax.') or m.startswith('jaxlib') or "
+        "m == 'cornetto_tpu' or m.startswith('cornetto_tpu.'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, CORNETTO_FORCE_CPU="1")
     proc = subprocess.run(

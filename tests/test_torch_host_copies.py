@@ -1,0 +1,272 @@
+"""The port's own copies of the JAX package's host layers against the
+originals, on seeded inputs and on test_data: the index build and the
+shared ``.npz`` index format (an index built by either package loads in
+the other), the read packing, the FASTA / BED / bedgraph / BAM readers, the
+SDUST chunk plan and reassembly, the native SDUST DP, the telomere walks,
+the window statistics and the host tools.  Integers and bytes throughout;
+tolerance: exact equality."""
+
+import io
+import pathlib
+
+import numpy as np
+import pytest
+
+from cornetto_tpu.dist import checkpoint as jax_ckpt
+from cornetto_tpu.io import bam as jax_bam
+from cornetto_tpu.io import bed as jax_bed
+from cornetto_tpu.io import fasta as jax_fasta
+from cornetto_tpu.kernels import minimizer as jax_mz
+from cornetto_tpu.kernels import sdust_chunked as jax_chunked
+from cornetto_tpu.kernels.pallas_telo import (_steps_for as jax_steps_for,
+                                              scan_runs_from_mask as jax_walk)
+from cornetto_tpu.kernels.sdust_core import _NT4 as JAX_NT4
+from cornetto_tpu.kernels.window_sum import (n_windows as jax_n_windows,
+                                             window_stats_numpy as jax_wsn)
+from cornetto_tpu.livefish import index as jax_index
+from cornetto_tpu.livefish.decide import unpack_fused as jax_unpack_fused
+from cornetto_tpu.native.sdust import sdust as jax_native_sdust
+from cornetto_tpu.tools import telobreaks as jax_telobreaks
+from cornetto_tpu.tools import telowin as jax_telowin
+from cornetto_tpu.tools.telofind import scan_runs as jax_scan_runs
+from cornetto_tpu_torch.dist import checkpoint as ckpt
+from cornetto_tpu_torch.io import bam, bed, fasta
+from cornetto_tpu_torch.kernels import minimizer as mz
+from cornetto_tpu_torch.kernels import sdust_chunked as chunked
+from cornetto_tpu_torch.kernels.sdust_core import _NT4
+from cornetto_tpu_torch.kernels.telo import _steps_for, scan_runs_from_mask
+from cornetto_tpu_torch.kernels.window_sum import n_windows, \
+    window_stats_numpy
+from cornetto_tpu_torch.livefish import index
+from cornetto_tpu_torch.livefish.decide import unpack_fused
+from cornetto_tpu_torch.native.sdust import sdust as native_sdust
+from cornetto_tpu_torch.tools import telobreaks, telowin
+from cornetto_tpu_torch.tools.telofind import scan_runs
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+ACGT = np.array(list("ACGT"))
+INDEX_FIELDS = ("hashes", "contigs", "positions", "shard_counts",
+                "contig_lens", "btable")
+
+
+def _genome(seed, n_ctg=4, size=30_000):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n_ctg):
+        s = ACGT[rng.integers(0, 4, size)]
+        s[rng.integers(0, size, 20)] = "N"            # interior Ns
+        rep = ACGT[rng.integers(0, 4, 600)]
+        s[1000:1600] = rep                            # an exact repeat
+        s[9000:9600] = rep
+        out["ctg%d" % i] = "".join(s)
+    return out
+
+
+def _assert_index_equal(a, b):
+    for f in INDEX_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            assert x.dtype == y.dtype and np.array_equal(x, y), f
+    for f in ("contig_names", "k", "w", "bucket_shift", "bucket_slots",
+              "two_choice", "n_shards"):
+        assert getattr(a, f) == getattr(b, f), f
+
+
+@pytest.mark.parametrize("n_shards,keep,two", [(1, True, True),
+                                               (2, False, True),
+                                               (1, False, False)])
+def test_build_index_arrays_equal(n_shards, keep, two):
+    g = _genome(1)
+    kw = dict(n_shards=n_shards, keep_tables=keep, two_choice=two)
+    _assert_index_equal(index.build_index(g, **kw),
+                        jax_index.build_index(g, **kw))
+
+
+def test_build_panel_mask_equal():
+    g = _genome(2)
+    rows = [("ctg0", 0, 5000), ("ctg2", 7000, 29000)]
+    a = index.build_panel_mask(index.build_index(g), rows)
+    b = jax_index.build_panel_mask(jax_index.build_index(g), rows)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_npz_index_loads_across_packages(tmp_path, writer):
+    g = _genome(3)
+    idx = index.build_index(g, keep_tables=writer == "port")
+    panel = np.zeros((len(idx.contig_names), 128), dtype=bool)
+    panel[1, 3:9] = True
+    tallies = {"seen": np.arange(5, dtype=np.int64)}
+    save, load = (ckpt.save_index, jax_ckpt.load_index) if writer == "port" \
+        else (jax_ckpt.save_index, ckpt.load_index)
+    path = str(tmp_path / "idx")
+    save(path, idx, panel_mask=panel, tallies=tallies)
+    got, got_panel, got_tallies = load(path)
+    _assert_index_equal(got, idx)
+    assert np.array_equal(got_panel, panel)
+    assert np.array_equal(got_tallies["seen"], tallies["seen"])
+    with np.load(path + ".npz", allow_pickle=True) as z:
+        keys = sorted(z.files)
+    other = str(tmp_path / "other")
+    (jax_ckpt.save_index if writer == "port" else ckpt.save_index)(
+        other, idx, panel_mask=panel, tallies=tallies)
+    with np.load(other + ".npz", allow_pickle=True) as z:
+        assert sorted(z.files) == keys
+
+
+def test_pack_reads_encode_seq_and_minimizers_equal():
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 5, size=(37, 203)).astype(np.uint8)
+    for x, y in zip(mz.pack_reads(codes), jax_mz.pack_reads(codes)):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    seq = "".join(np.array(list("ACGTNacgtnRY"))[rng.integers(0, 12, 5000)])
+    assert np.array_equal(mz.encode_seq(seq), jax_mz.encode_seq(seq))
+    c = mz.encode_seq(seq)
+    for fn in ("minimizers_np", "minimizers_native"):
+        for x, y in zip(getattr(mz, fn)(c), getattr(jax_mz, fn)(c)):
+            assert x.dtype == y.dtype and np.array_equal(x, y), fn
+
+
+def test_fasta_reader_equal(synth, tmp_path):
+    multi = tmp_path / "multi.fa.gz"
+    import gzip
+    with gzip.open(multi, "wt") as f:
+        f.write(">a desc here\nACGT\nNNac\n>b\n\n>c x\nTTTT\n")
+    for path in (synth / "asm.fasta", synth / "reads.fastq", multi):
+        got = [(r.name, r.comment, r.seq) for r in fasta.read_fastx(str(path))]
+        want = [(r.name, r.comment, r.seq)
+                for r in jax_fasta.read_fastx(str(path))]
+        assert got == want and got
+
+
+def test_bed_readers_equal(synth, tmp_path):
+    p = synth / "asm.bp.p_ctg.lowQ.bed"
+    assert list(bed.read_bed3(str(p))) == list(jax_bed.read_bed3(str(p)))
+    ct, cm = str(synth / "cov-total.bg"), str(synth / "cov-mq20.bg")
+    a = bed.read_bedgraph_pair(ct, cm)
+    b = jax_bed.read_bedgraph_pair(ct, cm)
+    assert a.names == b.names and (a.mean_depth, a.mean_mq_depth) == \
+        (b.mean_depth, b.mean_mq_depth)
+    for x, y in zip(a.depth + a.mq_depth, b.depth + b.mq_depth):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    scan = bed.scan_depth_track(ct)
+    assert scan == jax_bed.scan_depth_track(ct)
+    for (x, y) in zip(bed.iter_depth_contigs(ct, scan[1]),
+                      jax_bed.iter_depth_contigs(ct, scan[1])):
+        assert np.array_equal(x, y)
+    # run-length rows (the aligner-free tracks)
+    ranged = tmp_path / "r.bg"
+    ranged.write_text("c1\t0\t1000\t5\nc1\t1000\t2500\t7\nc2\t0\t10\t1\n")
+    a = bed.read_bedgraph_pair(str(ranged), str(ranged), ranged=True)
+    b = jax_bed.read_bedgraph_pair(str(ranged), str(ranged), ranged=True)
+    for x, y in zip(a.depth, b.depth):
+        assert np.array_equal(x, y)
+
+
+def test_bam_alignments_and_depth_equal():
+    """The BAM reader and the depth tally of the flow's depth step (the
+    example's references are GRCh38's, so only the covered ones are
+    compared; the per-base bedgraph of the whole genome is ~60 GB)."""
+    path = str(ROOT / "test_data" / "example.bam")
+    a, b = bam.BamFile(path), jax_bam.BamFile(path)
+    assert (a.ref_names, a.ref_lens) == (b.ref_names, b.ref_lens)
+    fields = ("ref_id", "pos", "flag", "mapq", "cigar")
+    got = [tuple(getattr(x, f) for f in fields) for x in a.alignments()]
+    want = [tuple(getattr(x, f) for f in fields) for x in b.alignments()]
+    assert got == want and len(got) == 50
+    refs = sorted({x[0] for x in got if x[0] >= 0})
+    for q in (0, 20):
+        da, db = bam.depth_arrays(a, min_mapq=q), jax_bam.depth_arrays(b,
+                                                                        q)
+        for r in refs:
+            assert da[r].dtype == db[r].dtype and \
+                np.array_equal(da[r], db[r])
+        assert sum(int(da[r].sum()) for r in refs)
+
+
+def _sdust_inputs():
+    rng = np.random.default_rng(6)
+    seqs = []
+    for n_len, gaps in ((9000, 0), (20_000, 6), (3000, 2)):
+        s = ACGT[rng.integers(0, 4, n_len)]
+        s[2000:2600] = np.tile(list("ATTCC"), 120)
+        s[5000:5400] = "A"
+        for _ in range(gaps):
+            p = int(rng.integers(0, n_len - 200))
+            s[p:p + int(rng.integers(1, 150))] = "N"
+        seqs.append("".join(s).encode())
+    return seqs
+
+
+@pytest.mark.parametrize("core,W", [(512, 64), (128, 32), (2048, 64)])
+def test_plan_chunks_and_assemble_equal(core, W):
+    for seq in _sdust_inputs():
+        codes = _NT4[np.frombuffer(seq, dtype=np.uint8)]
+        assert np.array_equal(codes,
+                              JAX_NT4[np.frombuffer(seq, dtype=np.uint8)])
+        plan = chunked.plan_chunks(codes, core, W)
+        assert plan == jax_chunked.plan_chunks(codes, core, W)
+        device, host = plan
+        per_chunk = [native_sdust(seq[c0:stop], W=W)
+                     for _a, _b, c0, stop in device]
+        parts = chunked.run_host_spans(seq, host, 20, W)
+        assert parts == jax_chunked.run_host_spans(seq, host, 20, W)
+        got = chunked.assemble(per_chunk, device, parts, W)
+        assert got == jax_chunked.assemble(per_chunk, device, parts, W)
+        assert got == native_sdust(seq, W=W)
+
+
+@pytest.mark.parametrize("T,W", [(20, 64), (14, 32), (5, 3), (30, 66)])
+def test_native_sdust_equal(synth, T, W):
+    seqs = _sdust_inputs() + [r.seq.encode() for r in
+                              fasta.read_fastx(str(synth / "asm.fasta"))]
+    for seq in seqs:
+        assert native_sdust(seq, T=T, W=W) == \
+            jax_native_sdust(seq, T=T, W=W)
+
+
+def test_telomere_walks_equal():
+    rng = np.random.default_rng(8)
+    for k in (6, 7, 1):
+        mask = (rng.random(20_000) < 0.05).astype(np.int8)
+        mask[100:160:k] = 1
+        assert scan_runs_from_mask(mask, k) == jax_walk(mask, k)
+    seq = "".join(ACGT[rng.integers(0, 4, 30_000)]).encode()
+    seq = seq[:500] + b"TTAGGG" * 40 + seq[500:] + b"TTAGG"
+    for motif in (b"TTAGGG", b"CCCTAA", b"A"):
+        assert list(scan_runs(seq, motif)) == list(jax_scan_runs(seq, motif))
+    for m, k in ((450, 6), (18, 6), (5, 6), (1800, 7)):
+        assert _steps_for(m, k) == jax_steps_for(m, k)
+
+
+@pytest.mark.parametrize("length,w,inc", [(100_003, 2500, 50), (999, 2500, 50),
+                                          (50_000, 999, 37)])
+def test_window_stats_numpy_equal(length, w, inc):
+    rng = np.random.default_rng(length)
+    d = rng.integers(0, 65536, length).astype(np.uint16)
+    m = rng.integers(0, 65536, length).astype(np.uint16)
+    assert n_windows(length, w, inc) == jax_n_windows(length, w, inc)
+    for x, y in zip(window_stats_numpy(d, m, w, inc), jax_wsn(d, m, w, inc)):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def test_unpack_fused_equal():
+    rng = np.random.default_rng(9)
+    arr = rng.integers(0, 1 << 31, size=(2, 300)).astype(np.int32)
+    for x, y in zip(unpack_fused(arr), jax_unpack_fused(arr)):
+        assert np.array_equal(x, y)
+
+
+def test_telowin_and_telobreaks_equal(gold):
+    for args in ((99.9, 0.4), (95, 0.3)):
+        a, b = io.StringIO(), io.StringIO()
+        telowin.run(str(gold / "telomere.txt"), *args, out=a)
+        jax_telowin.run(str(gold / "telomere.txt"), *args, out=b)
+        assert a.getvalue() == b.getvalue() and a.getvalue()
+    paths = [str(gold / n) for n in ("lens.txt", "sdust.txt",
+                                     "telomere.txt")]
+    a, b = io.StringIO(), io.StringIO()
+    telobreaks.run(*paths, out=a)
+    jax_telobreaks.run(*paths, out=b)
+    assert a.getvalue() == b.getvalue()

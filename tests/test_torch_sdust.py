@@ -14,7 +14,8 @@ import torch
 from cornetto_tpu.kernels.pallas_sdust import sdust_pallas_chunks
 from cornetto_tpu.kernels.sdust_chunked import plan_chunks
 from cornetto_tpu.native.sdust import sdust
-from cornetto_tpu_torch.kernels.sdust import (check_window, max_intervals,
+from cornetto_tpu_torch.kernels.sdust import (BUDGET_MAX, BUDGET_MIN,
+                                              check_window, max_intervals,
                                               plan_rows, sdust_chunks,
                                               sdust_chunks_ref, sdust_device,
                                               sdust_dp, sdust_dp_ref)
@@ -226,11 +227,12 @@ def test_window_66_is_the_widest(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "dim", "off_dtype", "noncontig",
-                                 "clen", "device", "past_end"])
+                                 "clen", "device", "past_end", "budget"])
 def test_wrapper_rejects_bad_input(bad):
     codes = torch.zeros(1000, dtype=torch.uint8)
     off = torch.tensor([0, 500], dtype=torch.int64)
     clen = 300
+    budget = None
     if bad == "dtype":
         codes = codes.to(torch.int32)
     elif bad == "dim":
@@ -246,8 +248,28 @@ def test_wrapper_rejects_bad_input(bad):
         off = off.to("meta")
     elif bad == "past_end":
         clen = 600
+    elif bad == "budget":
+        budget = -1
     with pytest.raises((ValueError, TypeError)):
-        sdust_dp(codes, off, clen)
+        sdust_dp(codes, off, clen, budget=budget)
+
+
+def test_ref_counts_find_perfect_row_steps():
+    """The plain version counts each row's find_perfect row-steps (the work
+    the light pass budgets): none on random sequence, about a window's rows
+    a base on a homopolymer, the same rows as the result without counts."""
+    rng = np.random.default_rng(3)
+    clen, W = 600, 64
+    rows = np.stack([rng.integers(0, 4, clen), np.zeros(clen, np.int64),
+                     np.tile([0, 1], clen // 2)]).astype(np.uint8)
+    codes = torch.from_numpy(rows.reshape(-1))
+    off = torch.arange(3, dtype=torch.int64) * clen
+    *got, steps = sdust_dp_ref(codes, off, clen, 20, W, return_steps=True)
+    for g, w in zip(got, sdust_dp_ref(codes, off, clen, 20, W)):
+        assert torch.equal(g, w)
+    assert steps.dtype == torch.int64 and steps.shape == (3,)
+    assert int(steps[0]) < clen
+    assert int(steps[1]) > 40 * clen and int(steps[2]) > 20 * clen
 
 
 def test_max_intervals():
@@ -274,8 +296,32 @@ def test_kernel_matches_plain_on_card(cuda_device, W, T, core):
     before = sdust_dp.launches
     got = sdust_dp(codes, off, clen, T, W)
     torch.cuda.synchronize()
-    assert sdust_dp.launches == before + 1
+    assert sdust_dp.launches == before + 2      # light and heavy passes
     for g, w in zip(got, sdust_dp_ref(codes, off, clen, T, W)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0, 1, BUDGET_MIN, BUDGET_MAX,
+                                    1 << 30])
+def test_two_pass_kernel_matches_plain_across_budget(cuda_device, budget):
+    """Rows past the light pass's budget go to the heavy pass (one warp per
+    row); the result is the plain version's whatever the budget, and budget
+    0 is the light pass alone."""
+    W, T, clen = 64, 20, 4 * 64 + 2048 + 64 + 8
+    rows = torch.from_numpy(_rows(np.random.default_rng([7, budget]), 140,
+                                  clen)).to(cuda_device)
+    codes = rows.reshape(-1)
+    off = torch.arange(140, device=cuda_device) * clen
+    *want, steps = sdust_dp_ref(codes, off, clen, T, W, return_steps=True)
+    over = int((steps > budget).sum()) if budget else 0
+    assert 0 < over < 140 or budget in (0, 1 << 30)
+    before, stats = sdust_dp.launches, {}
+    got = sdust_dp(codes, off, clen, T, W, budget=budget, stats=stats)
+    torch.cuda.synchronize()
+    assert sdust_dp.launches == before + (1 if budget == 0 else 2)
+    assert stats["heavy_rows"] == over
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 

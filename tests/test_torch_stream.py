@@ -104,8 +104,9 @@ def test_livefish_run_tsv_matches_jax(tmp_path, capsys, monkeypatch,
 
 
 def test_main_path_imports_no_jax(tmp_path):
-    """`livefish run` through the port leaves jax out of sys.modules (run in
-    a fresh interpreter: the test process itself has jax loaded)."""
+    """`livefish run` through the port leaves jax and the JAX package out
+    of sys.modules (run in a fresh interpreter: the test process itself has
+    both loaded)."""
     draft, bed, reads = _write_inputs(tmp_path, 2, "fastq")
     idx = _build_index(tmp_path, draft, bed)
     code = (
@@ -115,7 +116,8 @@ def test_main_path_imports_no_jax(tmp_path):
         "assert rc == 0, rc\n"
         "assert 'torch' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m.startswith('jaxlib'))\n"
+        "m.startswith('jax.') or m.startswith('jaxlib') or "
+        "m == 'cornetto_tpu' or m.startswith('cornetto_tpu.'))\n"
         "assert not bad, bad\n" % (idx, str(reads)))
     env = dict(os.environ, CORNETTO_FORCE_CPU="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
