@@ -9,7 +9,9 @@ checkout.  It:
 1. prints the card, its power limit and the toolchain;
 2. builds the minimizer-extraction kernel from cornetto_tpu_torch/csrc;
 3. holds the kernel bit-equal to its plain PyTorch version on the card in
-   all three validity variants, and times both;
+   all three validity variants, and times both; the same for the window-sum
+   kernel in 11 cases (chr1's two tracks timed, with x.unfold(...).sum(...)
+   as the library yardstick);
 4. builds a seeded synthetic draft at human scale (GRCh38's chromosome
    lengths, 3.09 Gbp in 87 contigs), its minimizer index (the port's host
    index build) and a panel of half its 1 Mb blocks, under build/smoke/
@@ -57,7 +59,11 @@ checkout.  It:
    their outputs and read tagging with the run-stats kernel; a second sdust
    run gives the per-part split and the SDUST kernel's time as light pass
    plus heavy pass with the number of heavy rows; telofind byte-equal to
-   its `--backend host` on the whole cut, sdust on a 20 Mb slice.
+   its `--backend host` on the whole cut, sdust on a 20 Mb slice;
+14. runs the `cuda`-marked tests of tests/test_torch_cuda_kernels.py
+   through `python -m pytest --noconftest -m cuda` in a subprocess (the
+   file imports neither jax nor the JAX package) and requires every test
+   it collects to pass.
 
 Phase 2 builds the four kernel sources in parallel; phases 3 and 11 hold
 each kernel bit-equal to its plain PyTorch version on the card.  Imports
@@ -421,15 +427,21 @@ def phase_kernels(seed: int):
 # ---------------------------------------------------------------- panel path
 
 # (name, N, W, S, rows, dtype): chr1 at the defaults (the main path's
-# shape), the TPU kernel's stride-1 contract, odd windows, W = 1, W past
-# the JAX path's int32 limit, N < W, and an N that is a prime
+# shape), the TPU kernel's stride-1 contract, odd windows, W % S != 0 on an
+# odd N, W = 1, W past the JAX path's int32 limit, N < W, an N that is a
+# prime, int32 values across the whole range ("int32full"), and an N
+# shorter than one 16-byte vector of either type
 WS_CASES = [("chr1", 248_956_422, WIN, INC, 2, "uint16"),
             ("stride1", 1 << 24, WIN, 1, 1, "int32"),
             ("odd", 10_000_019, 999, 37, 2, "uint16"),
+            ("w%s", 10_000_019, 1000, 37, 2, "uint16"),
             ("w1", 1_000_003, 1, 1, 2, "int32"),
             ("w40000", 10_000_019, 40_000, INC, 2, "uint16"),
             ("n<w", 1000, WIN, INC, 2, "uint16"),
-            ("prime", 15_485_863, WIN, INC, 2, "int32")]
+            ("prime", 15_485_863, WIN, INC, 2, "int32"),
+            ("i32full", 10_000_019, 1000, 37, 2, "int32full"),
+            ("n<vec", 3, 2, 1, 3, "uint16"),
+            ("n<vec32", 3, 2, 1, 3, "int32full")]
 
 
 def phase_window_kernel(seed: int):
@@ -443,10 +455,13 @@ def phase_window_kernel(seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst, timing = 0, None
     for name, n, w, s, rows, dt in WS_CASES:
-        x = torch.randint(0, 65536, (rows, n), generator=gen, device=dev,
-                          dtype=torch.int32)
-        if dt == "uint16":
-            x = x.to(torch.uint16)
+        lo, hi = (-1 << 31, 1 << 31) if dt == "int32full" else (0, 65536)
+        x = torch.randint(lo, hi, (rows, n), generator=gen, device=dev,
+                          dtype=torch.int64)
+        if dt == "int32full":            # window sums far past int32
+            x[0, :n // 2] = hi - 1
+            x[-1, :n // 2] = lo
+        x = x.to(torch.uint16 if dt == "uint16" else torch.int32)
         nw = n if s == 1 else n_windows(n, w, s)
         got = window_sums(x, w, s, nw)
         torch.cuda.synchronize()
@@ -485,6 +500,43 @@ def phase_window_kernel(seed: int):
         del x, got, ref
         torch.cuda.empty_cache()
     return worst, timing
+
+
+CUDA_TESTS = "tests/test_torch_cuda_kernels.py"
+
+
+def phase_cuda_tests(work: str):
+    """The `cuda`-marked tests through pytest in a subprocess (no conftest:
+    tests/conftest.py imports jax); every test the file collects must
+    pass."""
+    import xml.etree.ElementTree as ET
+    xml = os.path.join(work, "cuda_tests.xml")
+    if os.path.exists(xml):
+        os.remove(xml)
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
+           "no:cacheprovider", "-m", "cuda", CUDA_TESTS,
+           "--junitxml=" + xml]
+    env = {k: v for k, v in os.environ.items()
+           if k != "CORNETTO_FORCE_CPU"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    if not os.path.exists(xml):
+        fail("pytest wrote no report (exit %d):\n%s\n%s"
+             % (proc.returncode, proc.stdout[-3000:], proc.stderr[-2000:]))
+    suite = ET.parse(xml).getroot()
+    suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+    n = {k: int(suite.get(k)) for k in ("tests", "failures", "errors",
+                                        "skipped")}
+    passed = n["tests"] - n["failures"] - n["errors"] - n["skipped"]
+    log("[14 cuda tests] %s: %d collected, %d passed, %d failed, %d errors, "
+        "%d skipped, pytest exit %d, %.1f s (%s)"
+        % (" ".join(cmd[2:-1]), n["tests"], passed, n["failures"],
+           n["errors"], n["skipped"], proc.returncode, secs, tail[0]))
+    if proc.returncode != 0 or not n["tests"] or passed != n["tests"]:
+        fail("the cuda tests did not all pass:\n%s" % proc.stdout[-4000:])
 
 
 GOLDEN_RUNS = [
@@ -1679,6 +1731,9 @@ def main():
     an_launches, an_secs, an_stats = phase_annotation(
         args.seed, draft, slice_fa, contigs[:3])
     lap("13 annotation")
+    torch.cuda.empty_cache()
+    phase_cuda_tests(work)
+    lap("14 cuda tests")
     log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
         "W=%d S=%d: %.4f ms, plain %.4f ms, x.unfold(...).sum(...) %.4f ms "
         "(%s)" % (WIN, INC, ws_times["ms"], ws_times["plain_ms"],

@@ -6,10 +6,13 @@ each contig, one launch per strand, the CUDA kernel on a card, its plain
 version under CORNETTO_FORCE_CPU=1, an error with neither) and rebuilds the
 rows on the host with ``scan_runs_from_mask``; ``--backend host`` is the
 memchr scan ``scan_runs`` (a copy of the JAX package's).
-A motif with a letter other than ACGT takes the host scan, as in the JAX
-package (the mask kernel cannot express it).  Rows are byte-identical to the
-reference C tool's: forward then reverse-complement hits per contig,
-sequences uppercased.  No jax is imported.
+A motif with a byte other than uppercase ACGT takes the host scan: the mask
+kernel cannot express an N, and the sequence is uppercased but the motif is
+not, so a lowercase letter matches nothing (the JAX CLI's default, the
+host scan, behaves so; ``encode_seq`` would map it to the uppercase code).
+Rows are byte-identical to the reference C tool's: forward then
+reverse-complement hits per contig, sequences uppercased.  No jax is
+imported.
 """
 
 import sys
@@ -55,14 +58,13 @@ def run(fasta_path: str, motif: str = "TTAGGG", out=None,
         codes = None
         for strand, m in ((0, motif), (1, rmotif)):
             mb = m.encode("latin-1")
-            mcodes = encode_seq(m)
-            if backend != "device" or (mcodes >= 4).any():
+            if backend != "device" or not set(mb) <= set(b"ACGT"):
                 runs = scan_runs(seq, mb)
             else:
                 if codes is None:       # one upload serves both strands
                     codes = torch.from_numpy(
                         encode_seq(seq.decode("latin-1"))).to(dev)
-                mask = telo_match_mask_long(codes, mcodes.tolist())
+                mask = telo_match_mask_long(codes, encode_seq(m).tolist())
                 runs = scan_runs_from_mask(mask, len(mb))
             out.write("".join("%s\t%d\t%d\t%d\t%d\t%d\n"
                               % (rec.name, L, strand, st, end, ln)

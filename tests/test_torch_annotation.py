@@ -159,6 +159,27 @@ def test_telofind_non_acgt_motif_scans_on_host(cpu, tmp_path):
     assert outs[0] == outs[1] and outs[0].count("\n") == 2
 
 
+@pytest.mark.parametrize("motif", ["ttaggg", "TTAggg", "TTAGGG", "CCCTAA"])
+def test_telofind_motif_case_matches_jax_cli(cpu, tmp_path, motif):
+    """The sequence is uppercased and the motif is not: a lowercase letter
+    in the motif matches nothing.  The port's default (device) and host
+    backends give the JAX CLI's default output byte for byte."""
+    from cornetto_tpu.tools import telofind as jtf
+    fa = tmp_path / "t.fa"
+    fa.write_text(">c1\nACGTAC" + "TTAGGG" * 3 + "GATC" + "ttaggg" * 4
+                  + "CATG" + "TTAggg" * 2 + "ACGA" + "CCCTAA" * 2 + "TG"
+                  + "ccctaa" * 3 + "GG" + "cccTAA" * 2 + "ACGTTT\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jtf.main(["telofind", str(fa), motif]) == 0
+    want = buf.getvalue()
+    assert (want != "") == (motif.upper() == motif)
+    for backend in ([], ["--backend", "host"]):
+        rc, out, err = _cli(["telofind", str(fa), motif] + backend)
+        assert rc == 0, err
+        assert out == want
+
+
 @pytest.mark.parametrize("golden,args", [
     ("telowin.txt", ["99.9", "0.4"]),
     ("telowin2.txt", ["95", "0.3"])])

@@ -3,7 +3,7 @@ against the JAX package's Pallas kernel in interpret mode, as
 tests/test_pallas_extract.py runs it: all three validity variants, integer
 results at tolerance 0, inputs from a numpy seed.  On the CPU the wrapper
 runs its plain PyTorch version; the CUDA kernel itself is held against that
-version on the card (marked ``cuda``)."""
+version on the card (tests/test_torch_cuda_kernels.py)."""
 
 import numpy as np
 import pytest
@@ -13,8 +13,7 @@ import jax.numpy as jnp
 
 from cornetto_tpu.kernels.minimizer import pack_reads
 from cornetto_tpu.kernels.pallas_extract import extract_minima_pallas
-from cornetto_tpu_torch.kernels.extract import (extract_minima,
-                                                extract_minima_ref)
+from cornetto_tpu_torch.kernels.extract import extract_minima
 
 PARAMS = [
     (64, 450, 15, 10),
@@ -97,27 +96,3 @@ def test_wrapper_rejects_bad_input(bad):
         lengths = torch.zeros(B, dtype=torch.int32, device="meta")
     with pytest.raises((ValueError, TypeError)):
         extract_minima(packed, nmask, L, k, w, lengths=lengths)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("B,L,k,w", PARAMS + [(4096, 450, 15, 10),
-                                             (512, 1800, 15, 10)])
-def test_kernel_matches_plain_on_card(cuda_device, B, L, k, w, variant):
-    packed, nmask, lengths = _inputs(B, L, k, variant)
-    args = [None if a is None else torch.from_numpy(a).to(cuda_device)
-            for a in (packed, nmask, lengths)]
-    before = extract_minima.launches
-    h, v = extract_minima(args[0], args[1], L, k, w, lengths=args[2])
-    torch.cuda.synchronize()
-    assert extract_minima.launches == before + 1
-    h_ref, v_ref = extract_minima_ref(args[0], args[1], L, k, w,
-                                      lengths=args[2])
-    assert torch.equal(h, h_ref) and torch.equal(v, v_ref)

@@ -5,7 +5,7 @@ against the sequential native DP on the inputs of
 tests/test_pallas_sdust.py at core 128-512.  Integers throughout; tolerance:
 exact equality.  Inputs from a numpy seed.  On the CPU the wrapper runs its
 plain PyTorch version; the CUDA kernel is held against that version on the
-card (marked ``cuda``)."""
+card (tests/test_torch_cuda_kernels.py)."""
 
 import numpy as np
 import pytest
@@ -14,8 +14,7 @@ import torch
 from cornetto_tpu.kernels.pallas_sdust import sdust_pallas_chunks
 from cornetto_tpu.kernels.sdust_chunked import plan_chunks
 from cornetto_tpu.native.sdust import sdust
-from cornetto_tpu_torch.kernels.sdust import (BUDGET_MAX, BUDGET_MIN,
-                                              check_window, max_intervals,
+from cornetto_tpu_torch.kernels.sdust import (check_window, max_intervals,
                                               plan_rows, sdust_chunks,
                                               sdust_chunks_ref, sdust_device,
                                               sdust_dp, sdust_dp_ref)
@@ -275,59 +274,3 @@ def test_ref_counts_find_perfect_row_steps():
 def test_max_intervals():
     assert max_intervals(2376) == 49       # CLEN at W=64, core=2048
     assert max_intervals(456) == 16
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("W,T,core", [(64, 20, 512), (32, 14, 64),
-                                      (66, 20, 132), (64, 20, 2048)])
-def test_kernel_matches_plain_on_card(cuda_device, W, T, core):
-    clen = 4 * W + core + W + 8
-    rows = torch.from_numpy(_rows(np.random.default_rng([W, core]), 140,
-                                  clen)).to(cuda_device)
-    codes = rows.reshape(-1)
-    off = torch.arange(140, device=cuda_device) * clen
-    before = sdust_dp.launches
-    got = sdust_dp(codes, off, clen, T, W)
-    torch.cuda.synchronize()
-    assert sdust_dp.launches == before + 2      # light and heavy passes
-    for g, w in zip(got, sdust_dp_ref(codes, off, clen, T, W)):
-        assert torch.equal(g, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("budget", [0, 1, BUDGET_MIN, BUDGET_MAX,
-                                    1 << 30])
-def test_two_pass_kernel_matches_plain_across_budget(cuda_device, budget):
-    """Rows past the light pass's budget go to the heavy pass (one warp per
-    row); the result is the plain version's whatever the budget, and budget
-    0 is the light pass alone."""
-    W, T, clen = 64, 20, 4 * 64 + 2048 + 64 + 8
-    rows = torch.from_numpy(_rows(np.random.default_rng([7, budget]), 140,
-                                  clen)).to(cuda_device)
-    codes = rows.reshape(-1)
-    off = torch.arange(140, device=cuda_device) * clen
-    *want, steps = sdust_dp_ref(codes, off, clen, T, W, return_steps=True)
-    over = int((steps > budget).sum()) if budget else 0
-    assert 0 < over < 140 or budget in (0, 1 << 30)
-    before, stats = sdust_dp.launches, {}
-    got = sdust_dp(codes, off, clen, T, W, budget=budget, stats=stats)
-    torch.cuda.synchronize()
-    assert sdust_dp.launches == before + (1 if budget == 0 else 2)
-    assert stats["heavy_rows"] == over
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-
-
-@pytest.mark.cuda
-def test_device_matches_native_on_card(cuda_device):
-    for name in ("dense_satellite", "with_ns", "homopolymer", "fuzz3"):
-        seq, core, W, T = _suite(name)
-        assert sdust_device(seq, T=T, W=W, core=core,
-                            device=cuda_device) == sdust(seq, T=T, W=W)

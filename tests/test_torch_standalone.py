@@ -1,5 +1,6 @@
 """The port stands alone: no source file of ``cornetto_tpu_torch`` (nor
-``chip_smoke.py``) imports the JAX package, and the
+``chip_smoke.py``, nor the card tests of tests/test_torch_cuda_kernels.py,
+which run where JAX is not installed) imports the JAX package, and the
 port's CLI entry points not covered by the other no-jax tests leave both
 ``jax`` and ``cornetto_tpu`` out of ``sys.modules`` in a fresh interpreter.
 The two packages share only the ``.npz`` index format
@@ -16,7 +17,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "cornetto_tpu_torch").rglob("*.py")) + \
-    ["chip_smoke.py"]
+    ["chip_smoke.py", "tests/test_torch_cuda_kernels.py"]
 
 
 def _jax_package(name: str) -> bool:
@@ -47,6 +48,7 @@ def _imported_modules(tree):
 def test_sources_listed():
     assert len(SOURCES) > 40
     assert "cornetto_tpu_torch/cli.py" in SOURCES
+    assert "tests/test_torch_cuda_kernels.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)

@@ -6,7 +6,8 @@ doubling cap, L < k, N codes and both motifs; the contig-long mask against
 pallas_telo.telo_match_mask_long around its 65,536-base chunk.  Integers
 and booleans throughout; tolerance: exact equality.  Inputs from a numpy
 seed.  On the CPU the wrappers run their plain PyTorch versions; the CUDA
-kernels are held against those versions on the card (marked ``cuda``)."""
+kernels are held against those versions on the card
+(tests/test_torch_cuda_kernels.py)."""
 
 import numpy as np
 import pytest
@@ -171,28 +172,3 @@ def test_wrappers_reject_bad_input(bad):
     for fn in (telo_match_mask, telo_run_stats):
         with pytest.raises((ValueError, TypeError)):
             fn(codes, motif)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,L", [(4096, 450), (4096, 1800), (7, 300),
-                                 (3, 5), (1, 10_000_019)])
-def test_kernels_match_plain_on_card(cuda_device, B, L):
-    rng = np.random.default_rng([B, L])
-    codes = torch.from_numpy(_codes(rng, B, L)).to(cuda_device)
-    for motif in (TTAGGG, CCCTAA):
-        before = (telo_match_mask.launches, telo_run_stats.launches)
-        got_m = telo_match_mask(codes, motif)
-        got_s = telo_run_stats(codes, motif)
-        torch.cuda.synchronize()
-        assert (telo_match_mask.launches, telo_run_stats.launches) == \
-            (before[0] + 1, before[1] + 1)
-        assert torch.equal(got_m, telo_match_mask_ref(codes, motif))
-        for g, w in zip(got_s, telo_run_stats_ref(codes, motif)):
-            assert torch.equal(g, w)
