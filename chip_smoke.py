@@ -49,7 +49,11 @@ checkout.  It:
    version's find_perfect row-steps) and the main-path case; then the two
    passes' time against the light pass's budget on the main-path case and
    on 1,024 chunks to all of chr1's of the cut, each held equal to PR 3's
-   single pass;
+   single pass; the mask also at (4097, 451), (3, 17), (2, 5) and (1, 15)
+   with k = 1, 6, 37 and 100 and the self-overlapping AAAAAA and TATATA,
+   and on views 1-15 bytes past a 16-byte boundary, each with
+   telo_match_positions against nonzero of the plain mask; chr1's mask
+   timed beside its bound, and with the compaction;
 12. runs the annotation goldens (sdust, telofind on the device backends,
    the default and named, telowin, telobreaks) through
    `cornetto_tpu_torch.cli` on the card, byte-equal to test_data/golden;
@@ -59,7 +63,11 @@ checkout.  It:
    their outputs and read tagging with the run-stats kernel; a second sdust
    run gives the per-part split and the SDUST kernel's time as light pass
    plus heavy pass with the number of heavy rows; telofind byte-equal to
-   its `--backend host` on the whole cut, sdust on a 20 Mb slice;
+   its `--backend host` on the whole cut, sdust on a 20 Mb slice; second
+   telofind runs through `tools.telofind.run(stats=...)` on both backends
+   give its per-part split (FASTA read, uppercase + encode, H2D, kernel,
+   compaction, readback, host walk, output), their output equal to the CLI
+   run's;
 14. runs the `cuda`-marked tests of tests/test_torch_cuda_kernels.py
    through `python -m pytest --noconftest -m cuda` in a subprocess (the
    file imports neither jax nor the JAX package) and requires every test
@@ -914,6 +922,10 @@ def phase_iteration(seed: int, work: str):
 # ---------------------------------------------------------------- annotation
 
 TTAGGG, CCCTAA = (3, 3, 0, 2, 2, 2), (1, 1, 1, 3, 0, 0)
+# tools.telofind.run(stats=)'s parts on each backend
+TF_PARTS = ("read", "encode", "h2d", "kernel", "compact", "readback", "walk",
+            "output")
+TF_HOST_PARTS = ("read", "encode", "walk", "output")
 SLICE = 20_000_000                       # chr1's head, checked on the host
 # (start, unit, length) written into chr1's first 20 Mb: one satellite of
 # each period 1-6, the contig-start and an interstitial telomere, a
@@ -1198,6 +1210,82 @@ def _sdust_budget_sweep(seed: int, draft: str, main_case, budgets):
     return sweep
 
 
+def _planted(rng, B: int, L: int, motif):
+    """(B, L) codes 0-4 with the motif at the start, in a tandem array and
+    at the end of each row long enough to hold it."""
+    import numpy as np
+    codes = rng.integers(0, 5, size=(B, L)).astype(np.uint8)
+    m = np.array(motif, np.uint8)
+    k = len(m)
+    for r in range(B) if L >= k else []:
+        c = max(1, min(L // k, 4))
+        s = int(rng.integers(0, L - c * k + 1))
+        codes[r, s:s + c * k] = np.tile(m, c)
+        codes[r, :k] = m
+        codes[r, L - k:] = m
+    return codes
+
+
+def _mask_cases(seed: int, dev):
+    """The mask kernel against its plain version, and telo_match_positions
+    against nonzero of the plain mask, in the cases beyond chr1 and the
+    reads: ragged shapes (rows of odd length, rows shorter than a thread's
+    16 positions, L < k), k = 1, k = 37 and k = 100 (past the 64 codes the
+    kernel stages), self-overlapping motifs, and contiguous views that start
+    1-15 bytes past a 16-byte boundary.  Returns the worst error."""
+    import numpy as np
+    import torch
+    from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
+                                                 telo_match_mask_ref,
+                                                 telo_match_positions)
+    rng = np.random.default_rng([seed, 14])
+    motifs = {"TTAGGG": TTAGGG, "k1": (2,), "AAAAAA": (0,) * 6,
+              "TATATA": (3, 0) * 3,
+              "k37": tuple(rng.integers(0, 4, 37).tolist()),
+              "k100": tuple(rng.integers(0, 4, 100).tolist())}
+
+    def check(x, motif):
+        got = telo_match_mask(x, motif)
+        ref = telo_match_mask_ref(x, motif)
+        flat = x.reshape(-1)
+        pos = telo_match_positions(flat, motif)
+        want = torch.nonzero(telo_match_mask_ref(flat.reshape(1, -1),
+                                                 motif)[0], as_tuple=True)[0]
+        if not torch.equal(got, ref) or not torch.equal(pos, want):
+            return max(int((got.int() - ref.int()).abs().max()), 1), 0
+        return 0, int(ref.sum(dtype=torch.int64))
+
+    worst, lines = 0, []
+    for B, L in ((4097, 451), (3, 17), (2, 5), (1, 15)):
+        for name, motif in motifs.items():
+            x = torch.from_numpy(_planted(rng, B, L, motif)).to(dev)
+            e, n = check(x, motif)
+            worst = max(worst, e)
+            lines.append("(%d, %d) %s: %d/%d" % (B, L, name, e, n))
+    n_views = 0
+    for off in range(1, 16):
+        for name in ("TTAGGG", "k100"):
+            base = torch.from_numpy(_planted(
+                rng, 1, 1_000_016, motifs[name])).to(dev).reshape(-1)
+            view = base[off:off + 1_000_000]
+            if view.data_ptr() % 16 != off:
+                fail("the view at offset %d is not %d bytes past a 16-byte "
+                     "boundary" % (off, off))
+            for shape in ((1, 1_000_000), (8, 125_000)):
+                e, _ = check(view.reshape(shape), motifs[name])
+                worst = max(worst, e)
+                n_views += 1
+    log("[11 annotation kernels] telo_match_mask further cases, (B, L) "
+        "motif: max_abs_err/matches %s; %d unaligned views (offsets 1-15, "
+        "TTAGGG and k = 100, (1, 1e6) and (8, 125000)); positions equal to "
+        "nonzero of the plain mask in every case; max_abs_err=%d"
+        % ("; ".join(lines), n_views, worst))
+    if worst:
+        fail("mask kernel or positions disagree with the plain version in a "
+             "further case")
+    return worst
+
+
 def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
     """The SDUST, mask and run-stats kernels against their plain versions
     on the card; returns {name: {err, ms, plain_ms, bytes, ops, ...}}.
@@ -1210,6 +1298,7 @@ def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
     from cornetto_tpu_torch.kernels.sdust import max_intervals
     from cornetto_tpu_torch.kernels.telo import (_steps_for, telo_match_mask,
                                                  telo_match_mask_ref,
+                                                 telo_match_positions,
                                                  telo_run_stats,
                                                  telo_run_stats_ref)
     dev = torch.device("cuda")
@@ -1285,16 +1374,22 @@ def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
             if e or not torch.equal(got, ref):
                 fail("mask kernel disagrees with its plain version")
             del got, ref
+    worst = max(worst, _mask_cases(seed, dev))
     ms = cuda_ms(lambda: telo_match_mask(chr1, TTAGGG), 20, warmup=3)
     plain_ms = cuda_ms(lambda: telo_match_mask_ref(chr1, TTAGGG), 3,
                        warmup=1)
-    log("[11 annotation kernels] telo_match_mask chr1 (1, %d): kernel %.4f "
-        "ms plain %.4f ms" % (GRCH38[0], ms, plain_ms))
+    pos_ms = cuda_ms(lambda: telo_match_positions(chr1[0], TTAGGG), 20,
+                     warmup=3)
     n, cmp = GRCH38[0], early_exit_compares(chr1, TTAGGG)
+    b_ms, _ = bound(dict(bytes=2 * n, ops=cmp))
+    log("[11 annotation kernels] telo_match_mask chr1 (1, %d): kernel %.4f "
+        "ms (bound %.4f ms, bytes: %.1f%% of it), plain %.4f ms; "
+        "telo_match_positions (kernel + compaction on the card) %.4f ms"
+        % (GRCH38[0], ms, b_ms, 100 * b_ms / ms, plain_ms, pos_ms))
     log("[11 annotation kernels] telo_match_mask chr1: %d byte compares "
         "with early exit (%.3f a base)" % (cmp, cmp / n))
     out["telo_match_mask"] = dict(err=worst, ms=ms, plain_ms=plain_ms,
-                                  bytes=2 * n, ops=cmp)
+                                  positions_ms=pos_ms, bytes=2 * n, ops=cmp)
     del chr1
     torch.cuda.empty_cache()
 
@@ -1387,6 +1482,7 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
                                                  telo_run_stats,
                                                  telo_run_stats_ref)
     from cornetto_tpu_torch.tools import sdust as tsd
+    from cornetto_tpu_torch.tools import telofind as ttf
     total = sum(n for _, n in contigs)
     secs = {}
     p = lambda name: os.path.join(os.path.dirname(draft), name)  # noqa: E731
@@ -1467,6 +1563,18 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
                   p("telofind_host.txt"), p("telofind_host.err"))
     secs["telofind_host"] = time.perf_counter() - t0
     tf_same = _same_file(p("telofind.txt"), p("telofind_host.txt"))
+    # telofind's per-part split on both backends: second runs of the entry
+    # point, the device one synchronising the card at the end of each part
+    tf_split = {}
+    for backend in ("device", "host"):
+        st = tf_split[backend] = {}
+        t0 = time.perf_counter()
+        with open(p("telofind_split_%s.txt" % backend), "w") as f:
+            ttf.run(draft, out=f, backend=backend, stats=st)
+        torch.cuda.synchronize()
+        st["wall"] = time.perf_counter() - t0
+        st["same"] = _same_file(p("telofind.txt"),
+                                p("telofind_split_%s.txt" % backend))
     t0 = time.perf_counter()
     run_cli_quiet(["sdust", "--backend", "device", slice_fa],
                   p("slice_device.txt"), p("slice_device.err"))
@@ -1521,6 +1629,16 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
         "(%.2f Mb/s), host backend %.2f s; %d rows; byte-equal: %s"
         % (secs["telofind"], total / secs["telofind"] / 1e6,
            secs["telofind_host"], len(rows["telofind.txt"]), tf_same))
+    for backend, parts in (("device", TF_PARTS), ("host", TF_HOST_PARTS)):
+        st = tf_split[backend]
+        log("[13 annotation] telofind split, %s backend (second run%s): "
+            "%.2f s wall; %d contigs, %d bases, %d positions read back; "
+            "parts: %s, rest %.3f s; output equal to the CLI run's: %s"
+            % (backend, ", synchronised per part" if backend == "device"
+               else "", st["wall"], st["contigs"], st["bases"],
+               st.get("positions", 0),
+               ", ".join("%s %.3f s" % (k, st.get(k, 0.0)) for k in parts),
+               st["wall"] - sum(st.get(k, 0.0) for k in parts), st["same"]))
     log("[13 annotation] sdust on the %d bp slice: device %.2f s, host "
         "(native DP) %.2f s; %d rows; byte-equal: %s; the cut's chr1 rows "
         "ending before %d equal the slice's: %s (%d rows)"
@@ -1533,7 +1651,8 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
            secs["telobreaks"], len(rows["telobreaks.txt"]), secs["tagging"],
            tagged))
     log("[13 annotation] main-path launches: %s" % launches)
-    if not (tf_same and sd_same and head_same and cut_head and split_same):
+    if not (tf_same and sd_same and head_same and cut_head and split_same
+            and all(st["same"] for st in tf_split.values())):
         fail("annotation outputs differ from the host backends")
     if win_ctgs != {c for c, _ in contigs} or not rows["telobreaks.txt"] \
             or not tagged["terminal"] or not masked:
@@ -1542,7 +1661,7 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
             or launches["telo_match_mask"] != 2 * len(contigs):
         fail("an annotation kernel was not launched as expected: %s"
              % launches)
-    return launches, secs, stats
+    return launches, secs, stats, tf_split
 
 
 def main():
@@ -1728,7 +1847,7 @@ def main():
     lap("11 annotation kernels")
     phase_annotation_goldens(work)
     lap("12 annotation goldens")
-    an_launches, an_secs, an_stats = phase_annotation(
+    an_launches, an_secs, an_stats, tf_split = phase_annotation(
         args.seed, draft, slice_fa, contigs[:3])
     lap("13 annotation")
     torch.cuda.empty_cache()
@@ -1758,6 +1877,14 @@ def main():
            an_stats.get("heavy_ms", 0.0), an_stats.get("heavy_rows", 0),
            an_secs["telofind"], an_secs["telofind_host"],
            an_secs["sdust_slice_device"], an_secs["sdust_slice_host"], card))
+    tf = tf_split["device"]
+    log("[7 numbers] telofind on the device, split run: %.2f s = %s (%s)"
+        % (tf["wall"], " + ".join("%s %.3f" % (k, tf.get(k, 0.0))
+                                  for k in TF_PARTS), card))
+    tm = ak["telo_match_mask"]
+    log("[7 numbers] telomere mask kernel at chr1: %.4f ms, bound %.4f ms "
+        "(%s), plain %.4f ms; with the compaction %.4f ms (%s)"
+        % (tm["ms"], *bound(tm), tm["plain_ms"], tm["positions_ms"], card))
     sd = ak["sdust"]
     log("[7 numbers] sdust kernel at the main path's shape (384 rows, core "
         "2048): two passes %.4f ms (%d heavy rows), PR 3's single pass %.4f "

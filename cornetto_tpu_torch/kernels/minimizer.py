@@ -23,9 +23,20 @@ for _i, _c in enumerate("ACGT"):
     _CODE[ord(_c.lower())] = _i
 
 
+_CODE_TABLE = _CODE.tobytes()
+
+
 def encode_seq(seq: str) -> np.ndarray:
     """ASCII -> 2-bit codes (4 = N/other)."""
     return _CODE[np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)]
+
+
+def encode_bytes(seq: bytes) -> np.ndarray:
+    """encode_seq of a bytes object, with no str round trip: one
+    bytes.translate pass through the same table (half the time of the
+    numpy gather), into a writable array."""
+    return np.frombuffer(bytearray(seq.translate(_CODE_TABLE)),
+                         dtype=np.uint8)
 
 
 def _hash32_np(x: np.ndarray) -> np.ndarray:

@@ -14,10 +14,13 @@ copies (a read of L = 18 holding the motif 3 times reports 2), and
 ``terminal`` tests only the run that starts at position 0.
 
 ``_steps_for`` and the host walk ``scan_runs_from_mask`` are copies of the
-JAX module's host helpers.
+JAX module's host helpers.  telofind's device path takes
+``telo_match_positions`` (the mask compacted on the card) and walks the
+positions with ``scan_runs_from_positions``.
 """
 
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -51,6 +54,30 @@ def scan_runs_from_mask(mask: np.ndarray, k: int):
     return out
 
 
+def scan_runs_from_positions(pos, k: int, n: int):
+    """``scan_runs_from_mask``'s walk over the sorted match positions of a
+    sequence of n bases (a numpy array, list or tensor) instead of its
+    mask: the same rows.  One cursor moves forward over the positions, both
+    to test whether the run's next stride position matches and to skip the
+    matches before end+1; O(#matches)."""
+    lst = pos.tolist()
+    out = []
+    i, n_pos = 0, len(lst)
+    while i < n_pos:
+        q = lst[i]
+        p = q + k
+        while p < n:
+            while i < n_pos and lst[i] < p:
+                i += 1
+            if i == n_pos or lst[i] != p:
+                break
+            p += k
+        out.append((q, p, p - q))
+        while i < n_pos and lst[i] <= p:
+            i += 1
+    return out
+
+
 def _check(codes, motif_codes):
     if not isinstance(codes, torch.Tensor) or codes.dim() != 2 or \
             codes.dtype != torch.uint8:
@@ -79,6 +106,14 @@ def _lib():
         lib.cornetto_telo_stats.argtypes = [vp, ci, cl, vp, ci, ci, ci, vp,
                                             vp, vp, vp]
     return lib
+
+
+def _motif_on(motif, dev) -> torch.Tensor:
+    """The motif codes on the card, copied from pinned memory on the current
+    stream: a copy from pageable memory would first wait for the stream to
+    drain, leaving the card idle while the host prepares the launch."""
+    return torch.tensor(motif, dtype=torch.uint8).pin_memory().to(
+        dev, non_blocking=True)
 
 
 def telo_match_mask_ref(codes: torch.Tensor, motif_codes) -> torch.Tensor:
@@ -111,7 +146,7 @@ def telo_match_mask(codes: torch.Tensor, motif_codes) -> torch.Tensor:
     out = torch.empty((B, L), dtype=torch.int8, device=codes.device)
     lib = _lib()
     with torch.cuda.device(codes.device):
-        mt = torch.tensor(motif, dtype=torch.uint8, device=codes.device)
+        mt = _motif_on(motif, codes.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cornetto_telo_mask(codes.data_ptr(), B, L, mt.data_ptr(),
                                      len(motif), out.data_ptr(), stream)
@@ -141,6 +176,44 @@ def telo_match_mask_long(seq_codes, motif_codes, device=None) -> np.ndarray:
         return np.zeros(n, dtype=bool)
     mask = telo_match_mask(codes.reshape(1, n), motif_codes)
     return mask[0].to(torch.bool).cpu().numpy()
+
+
+def telo_match_positions(codes: torch.Tensor, motif_codes,
+                         stats: dict = None) -> torch.Tensor:
+    """Sorted positions (int64, where ``codes`` lies) at which the motif
+    starts a match in ONE sequence, codes a 1-D uint8 tensor: equal to
+    np.flatnonzero(telo_match_mask_long(codes, motif_codes)).
+
+    The mask is ``telo_match_mask`` of the sequence as one row (the kernel
+    on a card, counted in ``telo_match_mask.launches``) and is compacted
+    where it lies with ``torch.nonzero``, so only the positions, not a mask
+    as long as the sequence, have to cross to the host.  (The JAX package
+    compacts on the host with np.flatnonzero: no TPU kernel is replaced by
+    the library call.)  stats: optional dict; the call adds the seconds of
+    the mask ("kernel") and of the compaction ("compact") to it,
+    synchronising the card at the end of each."""
+    if not isinstance(codes, torch.Tensor) or codes.dim() != 1:
+        raise TypeError("codes must be a 1-D uint8 tensor")
+    n = codes.shape[0]
+    motif = tuple(int(c) for c in motif_codes)
+    if n < len(motif):
+        return torch.zeros(0, dtype=torch.int64, device=codes.device)
+    t0 = time.perf_counter()
+    mask = telo_match_mask(codes.reshape(1, n), motif)
+    t1 = _synced(codes.device, stats)
+    pos = torch.nonzero(mask[0], as_tuple=True)[0]
+    if stats is not None:
+        t2 = _synced(codes.device, stats)
+        stats["kernel"] = stats.get("kernel", 0.0) + t1 - t0
+        stats["compact"] = stats.get("compact", 0.0) + t2 - t1
+    return pos
+
+
+def _synced(device, stats) -> float:
+    """perf_counter(), after synchronising a card when stats are kept."""
+    if stats is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def telo_run_stats_ref(codes: torch.Tensor, motif_codes,
@@ -186,7 +259,7 @@ def telo_run_stats(codes: torch.Tensor, motif_codes,
     terminal = torch.empty(B, dtype=torch.uint8, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        mt = torch.tensor(motif, dtype=torch.uint8, device=dev)
+        mt = _motif_on(motif, dev)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cornetto_telo_stats(
             codes.data_ptr(), B, L, mt.data_ptr(), k,

@@ -1,30 +1,33 @@
 """telofind on the port: counterpart of cornetto_tpu/tools/telofind.py.
 
-``--backend device`` (the default) finds the motif's matches with the
-port's mask kernel (``kernels.telo.telo_match_mask_long``: one upload of
-each contig, one launch per strand, the CUDA kernel on a card, its plain
-version under CORNETTO_FORCE_CPU=1, an error with neither) and rebuilds the
-rows on the host with ``scan_runs_from_mask``; ``--backend host`` is the
-memchr scan ``scan_runs`` (a copy of the JAX package's).
+``--backend device`` (the default) uploads each contig's codes once and,
+per strand, finds the motif's match positions on the port's device
+(``kernels.telo.telo_match_positions``: the mask kernel, compacted where it
+lies, the CUDA kernel on a card, its plain version under
+CORNETTO_FORCE_CPU=1, an error with neither); only the positions come back
+to the host, where ``scan_runs_from_positions`` rebuilds the rows.
+``--backend host`` is the memchr scan ``scan_runs`` (a copy of the JAX
+package's).
 A motif with a byte other than uppercase ACGT takes the host scan: the mask
 kernel cannot express an N, and the sequence is uppercased but the motif is
 not, so a lowercase letter matches nothing (the JAX CLI's default, the
-host scan, behaves so; ``encode_seq`` would map it to the uppercase code).
+host scan, behaves so; the encoding would map it to the uppercase code).
 Rows are byte-identical to the reference C tool's: forward then
 reverse-complement hits per contig, sequences uppercased.  No jax is
 imported.
 """
 
 import sys
+import time
 
 import torch
 
 from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.io.fasta import read_fastx
-from cornetto_tpu_torch.kernels.minimizer import encode_seq
+from cornetto_tpu_torch.kernels.minimizer import encode_bytes
 from cornetto_tpu_torch.kernels.motif import revcomp_motif
-from cornetto_tpu_torch.kernels.telo import (scan_runs_from_mask,
-                                             telo_match_mask_long)
+from cornetto_tpu_torch.kernels.telo import (scan_runs_from_positions,
+                                             telo_match_positions)
 
 
 def scan_runs(seq: bytes, motif: bytes):
@@ -47,28 +50,56 @@ def scan_runs(seq: bytes, motif: bytes):
 
 
 def run(fasta_path: str, motif: str = "TTAGGG", out=None,
-        backend: str = "device") -> None:
+        backend: str = "device", stats: dict = None) -> None:
+    """stats: optional dict; the run adds its counts (contigs, bases,
+    positions read back) and its seconds per part to it: read (the FASTA
+    parse), encode (uppercase, and the codes on the device backend), h2d,
+    kernel, compact, readback, walk (the host scan on the host backend) and
+    output, synchronising the card at the end of each part."""
     out = out or sys.stdout
     rmotif = revcomp_motif(motif)
     dev = resolve_device() if backend == "device" else None
+    acc = {} if stats is None else stats
+    last = [time.perf_counter()]
+
+    def lap(part):
+        if stats is not None and dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        acc[part] = acc.get(part, 0.0) + now - last[0]
+        last[0] = now
+
     for rec in read_fastx(fasta_path):
+        lap("read")
         # disambiguate: uppercase (reference :76-81)
         seq = rec.seq.upper().encode("latin-1")
         L = len(seq)
         codes = None
+        lap("encode")
         for strand, m in ((0, motif), (1, rmotif)):
             mb = m.encode("latin-1")
             if backend != "device" or not set(mb) <= set(b"ACGT"):
-                runs = scan_runs(seq, mb)
+                runs = list(scan_runs(seq, mb))
             else:
                 if codes is None:       # one upload serves both strands
-                    codes = torch.from_numpy(
-                        encode_seq(seq.decode("latin-1"))).to(dev)
-                mask = telo_match_mask_long(codes, encode_seq(m).tolist())
-                runs = scan_runs_from_mask(mask, len(mb))
+                    codes = encode_bytes(seq)
+                    lap("encode")
+                    codes = torch.from_numpy(codes).to(dev)
+                    lap("h2d")
+                pos = telo_match_positions(codes, encode_bytes(mb).tolist(),
+                                           stats=stats)
+                last[0] = time.perf_counter()   # it timed its own parts
+                pos = pos.cpu().numpy()
+                lap("readback")
+                acc["positions"] = acc.get("positions", 0) + len(pos)
+                runs = scan_runs_from_positions(pos, len(mb), L)
+            lap("walk")
             out.write("".join("%s\t%d\t%d\t%d\t%d\t%d\n"
                               % (rec.name, L, strand, st, end, ln)
                               for st, end, ln in runs))
+            lap("output")
+        acc["contigs"] = acc.get("contigs", 0) + 1
+        acc["bases"] = acc.get("bases", 0) + L
 
 
 def main(argv) -> int:

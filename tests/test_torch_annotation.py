@@ -122,10 +122,12 @@ def test_telofind_env_switch_and_bad_backend(cpu, monkeypatch, synth, gold):
 def test_default_backends_reach_the_device_kernels(cpu, monkeypatch, synth,
                                                    gold):
     """sdust and telofind with no --backend run their DP and mask on the
-    port's device (sdust_device, telo_match_mask_long); --backend host
-    reaches neither; an unknown backend exits 1."""
+    port's device (sdust_device, telo_match_positions); --backend host
+    reaches neither; an unknown backend exits 1.  telofind's device path
+    never builds a contig-long host mask (telo_match_mask_long)."""
+    from cornetto_tpu_torch.kernels import telo
     from cornetto_tpu_torch.tools import telofind as ttf
-    calls = {"sdust": 0, "telo": 0}
+    calls = {"sdust": 0, "telo": 0, "long": 0}
 
     def spy(name, real):
         def f(*a, **k):
@@ -134,19 +136,57 @@ def test_default_backends_reach_the_device_kernels(cpu, monkeypatch, synth,
         return f
     monkeypatch.setattr(tsdust, "sdust_device",
                         spy("sdust", tsdust.sdust_device))
-    monkeypatch.setattr(ttf, "telo_match_mask_long",
-                        spy("telo", ttf.telo_match_mask_long))
+    monkeypatch.setattr(ttf, "telo_match_positions",
+                        spy("telo", ttf.telo_match_positions))
+    monkeypatch.setattr(telo, "telo_match_mask_long",
+                        spy("long", telo.telo_match_mask_long))
     fasta = str(synth / "asm.fasta")
     rc, out, _ = _cli(["sdust", fasta])
     assert rc == 0 and out == (gold / "sdust.txt").read_text()
     rc, out, _ = _cli(["telofind", fasta])
     assert rc == 0 and out == (gold / "telofind.txt").read_text()
-    assert calls == {"sdust": 4, "telo": 8}     # 4 contigs, 2 strands each
+    assert calls == {"sdust": 4, "telo": 8, "long": 0}  # 4 contigs x 2
     assert _cli(["sdust", "--backend", "host", fasta])[0] == 0
     assert _cli(["telofind", fasta, "--backend", "host"])[0] == 0
-    assert calls == {"sdust": 4, "telo": 8}
+    assert calls == {"sdust": 4, "telo": 8, "long": 0}
     rc, out, err = _cli(["sdust", "--backend", "nope", fasta])
     assert rc == 1 and out == "" and "host or device" in err
+
+
+def test_telofind_reads_back_only_positions(cpu, monkeypatch, synth, gold):
+    """The only tensors telofind's device path moves to the host are the
+    match positions: int64, one per match, never a mask as long as the
+    contig."""
+    from cornetto_tpu_torch.io.fasta import read_fastx
+    seen = []
+    real = torch.Tensor.cpu
+
+    def cpu_spy(t, *a, **k):
+        seen.append((t.dtype, t.numel()))
+        return real(t, *a, **k)
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu_spy)
+    rc, out, _ = _cli(["telofind", str(synth / "asm.fasta")])
+    assert rc == 0 and out == (gold / "telofind.txt").read_text()
+    shortest = min(len(r.seq) for r in read_fastx(str(synth / "asm.fasta")))
+    assert len(seen) == 8                        # 4 contigs x 2 strands
+    assert all(dt == torch.int64 for dt, _ in seen)
+    assert 0 < sum(n for _, n in seen) < shortest
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_telofind_run_reports_stats(cpu, synth, gold, backend):
+    """tools.telofind.run(stats=...) adds the counts and the seconds per
+    part; the output is the golden's."""
+    from cornetto_tpu_torch.tools import telofind as ttf
+    out, stats = io.StringIO(), {}
+    ttf.run(str(synth / "asm.fasta"), out=out, backend=backend, stats=stats)
+    assert out.getvalue() == (gold / "telofind.txt").read_text()
+    assert stats["contigs"] == 4 and stats["bases"] > 0
+    parts = ["read", "encode", "walk", "output"]
+    if backend == "device":
+        parts += ["h2d", "kernel", "compact", "readback"]
+        assert stats["positions"] >= out.getvalue().count("\n")
+    assert all(stats[k] >= 0 for k in parts)
 
 
 def test_telofind_non_acgt_motif_scans_on_host(cpu, tmp_path):

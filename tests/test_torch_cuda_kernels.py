@@ -26,6 +26,7 @@ from cornetto_tpu_torch.kernels.sdust import (BUDGET_MAX, BUDGET_MIN,
                                               sdust_dp_ref)
 from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
                                              telo_match_mask_ref,
+                                             telo_match_positions,
                                              telo_run_stats,
                                              telo_run_stats_ref)
 from cornetto_tpu_torch.kernels.window_sum import (n_windows, window_stats,
@@ -315,3 +316,80 @@ def test_telo_kernels_match_plain(cuda_device, B, L):
         assert torch.equal(got_m, telo_match_mask_ref(codes, motif))
         for g, w in zip(got_s, telo_run_stats_ref(codes, motif)):
             assert torch.equal(g, w)
+
+
+def _motif(name):
+    """TTAGGG, the self-overlapping AAAAAA and TATATA, or k seeded codes
+    (k = 1, 16 and 17 about the 16-code template, 37, 64 and 65 about the
+    staged halo, 100 past it)."""
+    if name == "TTAGGG":
+        return TTAGGG
+    if name == "AAAAAA":
+        return (0,) * 6
+    if name == "TATATA":
+        return (3, 0) * 3
+    k = int(name[1:])
+    return tuple(np.random.default_rng([k, 3]).integers(0, 4, k).tolist())
+
+
+def _planted(rng, B, L, motif):
+    """Codes 0-4 with the motif at the start, in a tandem array and at the
+    end of each row, so that every motif length matches."""
+    codes = rng.integers(0, 5, size=(B, L)).astype(np.uint8)
+    m = np.array(motif, np.uint8)
+    k = len(m)
+    for r in range(B):
+        if L >= k:
+            c = max(1, min(L // k, 4))
+            s = int(rng.integers(0, L - c * k + 1))
+            codes[r, s:s + c * k] = np.tile(m, c)
+            codes[r, :k] = m
+            codes[r, L - k:] = m
+    return codes
+
+
+def _check_mask(codes, motif):
+    """Kernel against the plain mask, and the positions of the flat array
+    against nonzero of the plain mask of it as one row."""
+    before = telo_match_mask.launches
+    got = telo_match_mask(codes, motif)
+    torch.cuda.synchronize()
+    assert telo_match_mask.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == codes.shape
+    assert torch.equal(got, telo_match_mask_ref(codes, motif))
+    flat = codes.reshape(-1)
+    pos = telo_match_positions(flat, motif)
+    want = torch.nonzero(telo_match_mask_ref(flat.reshape(1, -1), motif)[0],
+                         as_tuple=True)[0]
+    assert pos.dtype == torch.int64 and torch.equal(pos, want)
+    return int(got.sum())
+
+
+@pytest.mark.parametrize("motif", ["TTAGGG", "AAAAAA", "TATATA", "k1", "k16",
+                                   "k17", "k37", "k64", "k65", "k100"])
+@pytest.mark.parametrize("B,L", [(4097, 451), (3, 17), (2, 5), (1, 15),
+                                 (1, 1_000_003)])
+def test_telo_mask_kernel_shapes_and_motifs(cuda_device, B, L, motif):
+    """Rows of odd length, rows shorter than a thread's 16 positions, L < k,
+    motif lengths about the kernel's 16-code template and its 64-code staged
+    halo, and self-overlapping motifs."""
+    mt = _motif(motif)
+    rng = np.random.default_rng([B, L, len(mt)])
+    n = _check_mask(torch.from_numpy(_planted(rng, B, L, mt)).to(cuda_device),
+                    mt)
+    assert n > 0 or L < len(mt)
+
+
+@pytest.mark.parametrize("offset", list(range(1, 16)))
+def test_telo_mask_kernel_unaligned_view(cuda_device, offset):
+    """Contiguous views that start 1-15 bytes past a 16-byte boundary, as
+    one row and as (7, 4999) rows, with motifs inside and past the staged
+    halo."""
+    rng = np.random.default_rng([offset, 11])
+    for motif in (TTAGGG, CCCTAA, _motif("k37"), _motif("k100")):
+        base = torch.from_numpy(_planted(rng, 1, 35_008, motif)).to(
+            cuda_device).reshape(-1)
+        view = base[offset:offset + 34_993]
+        assert view.data_ptr() % 16 == offset % 16 and view.is_contiguous()
+        assert _check_mask(view.reshape(1, -1), motif) > 0
+        _check_mask(view.reshape(7, 4999), motif)

@@ -1,5 +1,6 @@
 """The port stands alone: no source file of ``cornetto_tpu_torch`` (nor
-``chip_smoke.py``, nor the card tests of tests/test_torch_cuda_kernels.py,
+``chip_smoke.py`` or ``bench_telo_mask.py``, nor the card tests of
+tests/test_torch_cuda_kernels.py,
 which run where JAX is not installed) imports the JAX package, and the
 port's CLI entry points not covered by the other no-jax tests leave both
 ``jax`` and ``cornetto_tpu`` out of ``sys.modules`` in a fresh interpreter.
@@ -17,7 +18,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "cornetto_tpu_torch").rglob("*.py")) + \
-    ["chip_smoke.py", "tests/test_torch_cuda_kernels.py"]
+    ["bench_telo_mask.py", "chip_smoke.py",
+     "tests/test_torch_cuda_kernels.py"]
 
 
 def _jax_package(name: str) -> bool:

@@ -2,8 +2,10 @@
 against the JAX package: the match mask and the run statistics against both
 telo_scan functions and the Pallas kernels in interpret mode (as
 tests/test_pallas_telo.py runs them), at that file's shapes plus the
-doubling cap, L < k, N codes and both motifs; the contig-long mask against
-pallas_telo.telo_match_mask_long around its 65,536-base chunk.  Integers
+doubling cap, L < k, N codes and both motifs; the contig-long mask and
+the match positions against pallas_telo.telo_match_mask_long around its
+65,536-base chunk; the walk over the positions against the walk over the
+mask and the memchr scan (seeded and hypothesis inputs).  Integers
 and booleans throughout; tolerance: exact equality.  Inputs from a numpy
 seed.  On the CPU the wrappers run their plain PyTorch versions; the CUDA
 kernels are held against those versions on the card
@@ -12,6 +14,8 @@ kernels are held against those versions on the card
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -20,11 +24,16 @@ from cornetto_tpu.kernels.pallas_telo import (telo_match_mask_pallas,
                                               telo_run_stats_pallas)
 from cornetto_tpu.kernels.telo_scan import (telo_match_mask_jax,
                                             telo_run_stats_jax)
-from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
+from cornetto_tpu_torch.kernels.minimizer import encode_bytes
+from cornetto_tpu_torch.kernels.telo import (scan_runs_from_mask,
+                                             scan_runs_from_positions,
+                                             telo_match_mask,
                                              telo_match_mask_long,
                                              telo_match_mask_ref,
+                                             telo_match_positions,
                                              telo_run_stats,
                                              telo_run_stats_ref)
+from cornetto_tpu_torch.tools.telofind import scan_runs
 
 TTAGGG = (3, 3, 0, 2, 2, 2)
 CCCTAA = (1, 1, 1, 3, 0, 0)
@@ -148,6 +157,109 @@ def test_mask_long_matches_jax(monkeypatch, n):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         telo_match_mask_long(torch.from_numpy(seq), TTAGGG), want)
+
+
+@pytest.mark.parametrize("n", [6, 65_530, 65_541, 131_078])
+def test_match_positions_match_jax(monkeypatch, n):
+    """The mask compacted where it lies: np.flatnonzero of the JAX
+    package's contig-long mask, sorted int64; no kernel launch on the CPU,
+    and stats get the mask's and the compaction's seconds."""
+    monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
+    rng = np.random.default_rng([n, 7])
+    seq = rng.integers(0, 5, size=n).astype(np.uint8)
+    telo = np.tile(np.array(TTAGGG, np.uint8), 8)
+    if n > 65_600:                    # runs across the 65,536-base chunk
+        seq[65_520:65_520 + len(telo)] = telo
+    seq[-min(n, len(telo)):] = telo[:min(n, len(telo))]
+    for motif in (TTAGGG, CCCTAA):
+        want = np.flatnonzero(jax_long(seq, motif, interpret=True))
+        before, stats = telo_match_mask.launches, {}
+        got = telo_match_positions(torch.from_numpy(seq), motif, stats=stats)
+        assert telo_match_mask.launches == before
+        assert got.dtype == torch.int64 and got.dim() == 1
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert stats["kernel"] >= 0 and stats["compact"] >= 0
+    short = telo_match_positions(torch.from_numpy(seq[:5]), TTAGGG)
+    assert short.dtype == torch.int64 and short.numel() == 0
+
+
+def test_encode_bytes_equals_encode_seq():
+    """telofind's encode of the uppercased bytes (one bytes.translate pass)
+    gives the JAX package's encode_seq codes for every byte value, in a
+    writable array."""
+    from cornetto_tpu.kernels.minimizer import encode_seq
+    text = bytes(range(256)) * 3 + b"ACGTNacgtn"
+    got = encode_bytes(text)
+    np.testing.assert_array_equal(got, encode_seq(text.decode("latin-1")))
+    assert got.dtype == np.uint8 and got.flags.writeable
+    assert encode_bytes(b"").shape == (0,)
+
+
+def _walks_agree(text: bytes, motif: bytes):
+    """The positions walk against the mask walk and the memchr scan."""
+    codes = torch.from_numpy(encode_bytes(text))
+    mc = encode_bytes(motif).tolist()
+    mask = telo_match_mask_long(codes, mc)
+    pos = telo_match_positions(codes, mc)
+    got = scan_runs_from_positions(pos, len(motif), len(text))
+    assert got == scan_runs_from_mask(mask, len(motif))
+    assert got == list(scan_runs(text, motif))
+    assert scan_runs_from_positions(pos.numpy(), len(motif), len(text)) == got
+    return got
+
+
+@pytest.mark.parametrize("text,motif,n_rows", [
+    (b"AAAAAAAAAAAAAAAAAAAA", b"AAAAAA", 1),         # period 1 < k
+    (b"CAAAAAAAAAAAAG" + b"A" * 7, b"AAAAAA", 2),
+    (b"TATATATATATATAT", b"TATATA", 1),              # period 2 < k
+    (b"TTAGGG" * 5, b"TTAGGG", 1),                   # both ends
+    (b"TTAGGGTTAGGCTTAGGG" + b"ACGT" * 3 + b"TTAGGG", b"TTAGGG", 3),
+    (b"ACGTACGTACGTNNNN", b"TTAGGG", 0),             # no match
+    (b"TTAG", b"TTAGGG", 0),                         # n < k
+    (b"", b"TTAGGG", 0),
+    (b"TTAGGGTTAGG", b"TTAGGG", 1),
+    (b"GGGGGGGGG", b"G", 1)])
+def test_positions_walk_equals_mask_walk_and_scan(monkeypatch, text, motif,
+                                                  n_rows):
+    monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
+    assert len(_walks_agree(text, motif)) == n_rows
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_positions_walk_seeded(monkeypatch, seed):
+    """Seeded contigs of tandem arrays, broken copies and self-overlapping
+    motifs at both ends."""
+    monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
+    rng = np.random.default_rng([seed, 21])
+    for motif in (b"TTAGGG", b"CCCTAA", b"AAAAAA", b"TATATA", b"AT", b"C"):
+        parts = []
+        for _ in range(40):
+            r = rng.random()
+            if r < 0.4:
+                parts.append(motif * int(rng.integers(1, 9)))
+            elif r < 0.6:
+                parts.append(motif[:int(rng.integers(1, len(motif) + 1))])
+            else:
+                parts.append(bytes(rng.choice(list(b"ACGTN"),
+                                              int(rng.integers(1, 30)))))
+        _walks_agree(motif * 3 + b"".join(parts) + motif * 2, motif)
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(text=st.text(alphabet="ACGTN", max_size=120),
+       motif=st.sampled_from(["TTAGGG", "CCCTAA", "AAAAAA", "TATATA", "AT",
+                              "A", "ACGTACGTA"]))
+def test_positions_walk_hypothesis(text, motif):
+    import os
+    old = os.environ.get("CORNETTO_FORCE_CPU")
+    os.environ["CORNETTO_FORCE_CPU"] = "1"
+    try:
+        _walks_agree(text.encode(), motif.encode())
+    finally:
+        if old is None:
+            del os.environ["CORNETTO_FORCE_CPU"]
+        else:
+            os.environ["CORNETTO_FORCE_CPU"] = old
 
 
 @pytest.mark.parametrize("bad", ["dtype", "dim", "noncontig", "motif_code",
