@@ -7,24 +7,35 @@ Needs one NVIDIA GPU with the CUDA toolkit (nvcc).  Run from the root of a
 checkout.  It:
 
 1. prints the card, its power limit and the toolchain;
-2. builds the minimizer-extraction kernel from cornetto_tpu_torch/csrc;
-3. holds the kernel bit-equal to its plain PyTorch version on the card in
-   all three validity variants, and times both; the same for the window-sum
-   kernel in 11 cases (chr1's two tracks timed, with x.unfold(...).sum(...)
-   as the library yardstick);
+2. builds the five kernel sources of cornetto_tpu_torch/csrc;
+3. holds the extraction kernel bit-equal to its plain PyTorch version on
+   the card in all three validity variants, and times both; the fused
+   decision kernel (extraction, lookup, votes and policy in one launch)
+   bit-equal to its plain version in both output forms on small seeded
+   indexes (tests/_decide_cases.py: C = 3 and 300, two_choice on and off,
+   min_hits 0 and 3, a table at high occupancy; reads with no hit, with
+   ambiguous hits only, tied between two contigs, at the panel's last bin)
+   and, once phase 4 has the human-scale index on the card, on 4096 x 450
+   reads in the three validity variants, a 1000-read tail and 512 x 1800
+   reads, timed beside the plain step; the window-sum kernel in 11 cases
+   (chr1's two tracks timed, with x.unfold(...).sum(...) as the library
+   yardstick);
 4. builds a seeded synthetic draft at human scale (GRCh38's chromosome
    lengths, 3.09 Gbp in 87 contigs), its minimizer index (the port's host
    index build) and a panel of half its 1 Mb blocks, under build/smoke/
    (reused on a rerun with the same seed), and uploads the index;
 5. runs 64 full batches of 4096 sampled 450-base reads plus a short tail
    through `cornetto_tpu_torch.cli livefish run`, checking one row per read
-   and one kernel launch per batch; it then runs a second draft small
+   and one fused-kernel launch per batch (no standalone extraction); it then runs a second draft small
    enough for 15-mer seeds to be nearly unique (24 Mbp, 96 contigs) through
    the same entry point and requires >= 99% right contigs and decisions on
    genomic reads and `proceed` on every junk read;
 6. decides the first two batches again on the CPU (plain versions) and
    requires byte-identical rows;
-7. prints end-to-end reads/s and the per-layer times of one batch;
+7. prints end-to-end reads/s, host parse+pack alone, the fused kernel's
+   time beside its bound, the step through decision_core_packed_fused and
+   the earlier step (the extraction kernel, then lookup, votes and policy
+   as torch ops);
 8. runs `boringbits` / `noboringbits` through `cornetto_tpu_torch.cli` with
    the four golden option sets on test_data/synth and requires output
    byte-equal to test_data/golden and window-sum launches;
@@ -34,8 +45,9 @@ checkout.  It:
    CORNETTO_FORCE_CPU=1 run, byte for byte;
 10. one aligner-free iteration, `cornetto_tpu_torch.cli flow` on a 32 Mbp
    draft with coverage holes and ~430k reads (livefish cov -> create-panel
-   -> telostats -> livefish index), checking the launches and the panel,
-   then `livefish cov` on two batches on the card against the CPU;
+   -> telostats -> livefish index), checking the launches (one fused
+   decision launch per `cov` batch) and the panel, then `livefish cov` on
+   two batches on the card against the CPU;
 11. writes the annotation draft of phase 13 (reused per seed) and holds
    the SDUST, telomere-mask and run-stats kernels equal to their plain
    versions on the card (SDUST in both designs, the light + heavy passes
@@ -73,7 +85,7 @@ checkout.  It:
    file imports neither jax nor the JAX package) and requires every test
    it collects to pass.
 
-Phase 2 builds the four kernel sources in parallel; phases 3 and 11 hold
+Phase 2 builds the five kernel sources in parallel; phases 3 and 11 hold
 each kernel bit-equal to its plain PyTorch version on the card.  Imports
 nothing of the JAX package: the index, the parsers and the host DP are the
 port's own.  Prints the numbers, each phase's seconds, a {"kernels": [...]}
@@ -96,7 +108,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, READ_LEN, K, W = 4096, 450, 15, 10
 FULL_BATCHES, TAIL = 64, 1000
-KERNELS = ("extract_minima", "window_sum", "sdust", "telo")
+KERNELS = ("extract_minima", "decide", "window_sum", "sdust", "telo")
 WIN, INC = 2500, 50                      # boringbits' default window
 
 # the least time the card could take for a kernel's work (bound_ms): its
@@ -111,7 +123,10 @@ WIN, INC = 2500, 50                      # boringbits' default window
 # find_perfect row-step (count lookup and update, the r update, the firing
 # test, the ratio comparisons); a byte compare of the motif match, counted
 # as the input needs them when each start stops at its first mismatch
-# (early_exit_compares).
+# (early_exit_compares).  The fused decision step moves the packed reads
+# (with their bitmap or lengths), one bucket row a probe of each valid
+# window of this run's reads, a panel byte and its outputs a read; its
+# operations are counted as extraction's (decide_work).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 EXTRACT_OPS_KMER = 25
@@ -325,6 +340,38 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
+    """Device time of one call of fn: n calls captured in a CUDA graph,
+    the best of reps replays timed with CUDA events over n.  Leaves out
+    the host's cost of a call (the Python wrapper, the ctypes launch),
+    which back-to-back calls timed with cuda_ms include."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / n)
+    del g
+    return best
+
+
 def phase_device():
     import torch
     smi = subprocess.run(
@@ -362,7 +409,8 @@ def phase_build():
                "nvcc %.2f s" % info[0] if info else "cached"))
         if info:
             for line in info[1].splitlines():
-                if "registers" in line or "smem" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers",
+                                           "smem", "spill")):
                     log("[2 build]   ptxas: %s" % line.strip())
     log("[2 build] all %d kernels in %.2f s" % (len(KERNELS), dt))
     return dt
@@ -409,15 +457,20 @@ def phase_kernels(seed: int):
             line = ("[3 kernel] (%d, %d) k=%d w=%d %-7s max_abs_err=%d "
                     "valid_mismatch=%d" % (B, L, k, w, variant, err, vbad))
             if (B, L) == (4096, 450):
-                ms = cuda_ms(lambda: extract_minima(pk, nm, L, k, w,
-                                                    lengths=ln), 200)
+                call = lambda: extract_minima(pk, nm, L, k, w,  # noqa
+                                              lengths=ln)
+                ms = graph_ms(call)
+                ms_call = cuda_ms(call, 200)
                 ms_ref = cuda_ms(lambda: extract_minima_ref(
                     pk, nm, L, k, w, lengths=ln), 10)
                 m = (L - k + 1) // w
                 timing[variant] = dict(
-                    ms=ms, plain_ms=ms_ref, bytes=pk.numel() + B * m * 5,
+                    ms=ms, call_ms=ms_call, plain_ms=ms_ref,
+                    bytes=pk.numel() + B * m * 5,
                     ops=B * (L - k + 1) * EXTRACT_OPS_KMER)
-                line += " kernel %.4f ms plain %.4f ms" % (ms, ms_ref)
+                line += (" kernel %.4f ms (graph replay), %.4f ms a "
+                         "wrapper call back to back, plain %.4f ms"
+                         % (ms, ms_call, ms_ref))
             log(line)
             if err or vbad or not torch.equal(h, hr):
                 fail("kernel disagrees with its plain version at "
@@ -429,6 +482,149 @@ def phase_kernels(seed: int):
     log("[3 kernel] argmax ties on the card -> %s" % got)
     if got != [1, 0, 0]:
         fail("torch.argmax does not return the first maximum on the card")
+    return worst, timing
+
+
+def decide_work(btable, two_choice, pk, nm, ln, L, fused, valid_windows):
+    """{"bytes", "ops"} of one fused decision step (see bound)."""
+    B = pk.shape[0]
+    row = btable.shape[1] * 4
+    probes = 2 if two_choice else 1
+    inputs = pk.numel() + (0 if nm is None else nm.numel()) + \
+        (0 if ln is None else ln.numel() * 4)
+    outputs = B * (8 if fused else 21)
+    return dict(bytes=inputs + valid_windows * probes * row + B + outputs,
+                ops=B * (L - K + 1) * EXTRACT_OPS_KMER)
+
+
+def _check_decide(label, btable, pk, nm, ln, panel, L, k, w, min_hits,
+                  bucket_shift, two_choice):
+    """The fused kernel against its plain version in both output forms;
+    returns the largest absolute difference (fails unless 0)."""
+    import torch
+    from cornetto_tpu_torch.kernels.decide import (decide_packed,
+                                                   decide_packed_ref)
+    kw = dict(L=L, k=k, w=w, min_hits=min_hits, bin_size=1000,
+              bucket_shift=bucket_shift, two_choice=two_choice, lengths=ln)
+    worst = 0
+    for fused in (False, True):
+        got = decide_packed(btable, pk, nm, panel, fused=fused, **kw)
+        torch.cuda.synchronize()
+        want = decide_packed_ref(btable, pk, nm, panel, fused=fused, **kw)
+        got, want = ((got,), (want,)) if fused else (got, want)
+        for g, r in zip(got, want):
+            same = g.dtype == r.dtype and torch.equal(g, r)
+            err = int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+            worst = max(worst, err, 0 if same else 1)
+    if worst:
+        fail("the fused decision kernel disagrees with its plain version: "
+             "%s" % label)
+    return worst
+
+
+def phase_decide_small(seed: int):
+    """The fused kernel on the seeded small indexes of the tests."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _decide_cases as dc
+    dev = torch.device("cuda")
+    put = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa
+    n = worst = 0
+    for C, tc, total in [(3, True, 60_000), (3, False, 60_000),
+                         (300, True, 60_000), (300, False, 60_000),
+                         (4, True, 3_000_000)]:
+        idx, panel, codes = dc.index(seed, C, tc, L=READ_LEN, total=total)
+        bt, pn = put(idx.btable[0]), put(panel)
+        for variant in dc.VARIANTS:
+            packed, nmask, lengths, rows = dc.batch(seed, idx, panel, codes,
+                                                    variant, B=128)
+            for min_hits in (0, 3):
+                worst = max(worst, _check_decide(
+                    (C, tc, total, variant, min_hits), bt, put(packed),
+                    put(nmask), put(lengths), pn, READ_LEN, idx.k, idx.w,
+                    min_hits, idx.bucket_shift, tc))
+                n += 1
+    log("[3 kernel] decide: %d small-index cases (C = 3 and 300, "
+        "two_choice on and off, min_hits 0 and 3, a table at high "
+        "occupancy; no-hit, ambiguous-only, tied and last-bin reads), both "
+        "output forms, max_abs_err=%d" % (n, worst))
+    return worst
+
+
+def _human_reads(seed: int, contigs, codes, B: int, L: int, variant: str):
+    """B seeded reads of L bases of the human-scale draft (2% junk, half
+    reverse-complemented) in a validity variant, packed on the host."""
+    import numpy as np
+    from cornetto_tpu_torch.kernels.minimizer import pack_reads
+    rng = np.random.default_rng([seed, 9, B, L, len(variant)])
+    lens = np.array([n for _, n in contigs], dtype=np.int64)
+    ctg = rng.choice(len(contigs), size=B, p=lens / lens.sum())
+    reads = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    for i in np.flatnonzero(rng.random(B) >= 0.02):
+        c = int(ctg[i])
+        s0 = int(rng.integers(0, lens[c] - L + 1))
+        reads[i] = codes[c][s0:s0 + L]
+    rc = rng.random(B) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    lengths = None
+    if variant == "nmask":
+        reads[rng.random((B, L)) < 0.01] = 4
+        reads[0] = 4
+    elif variant == "lengths":
+        lengths = np.full(B, L, dtype=np.int32)
+        short = rng.random(B) < 0.25
+        lengths[short] = rng.integers(0, L, size=int(short.sum()))
+    packed, nmask = pack_reads(reads)
+    return packed, (nmask if variant == "nmask" else None), lengths
+
+
+def phase_decide_human(seed: int, state, contigs, codes):
+    """The fused kernel on the human-scale index: the decision loop's
+    batch in the three validity variants, a short tail and the chunk
+    engine's longest reads, then times at (4096, 450) N-free.  Returns
+    (worst error, timing row)."""
+    import torch
+    from cornetto_tpu_torch.kernels.decide import (decide_packed,
+                                                   decide_packed_ref)
+    from cornetto_tpu_torch.kernels.extract import extract_minima_ref
+    dev = torch.device("cuda")
+    put = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa
+    bt, pn = state.btable, state.panel
+    worst, timing = 0, None
+    cases = [(BATCH, READ_LEN, v) for v in ("nfree", "lengths", "nmask")] + \
+        [(TAIL, READ_LEN, "lengths")] + \
+        [(512, 1800, v) for v in ("nfree", "lengths", "nmask")]
+    for B, L, variant in cases:
+        pk, nm, ln = (put(a) for a in _human_reads(seed, contigs, codes, B,
+                                                   L, variant))
+        err = _check_decide(("human", B, L, variant), bt, pk, nm, ln, pn, L,
+                            K, W, 3, state.bucket_shift, state.two_choice)
+        worst = max(worst, err)
+        _, valid = extract_minima_ref(pk, nm, L, K, W, lengths=ln)
+        nvalid = int(valid.sum())
+        line = ("[3 kernel] decide human-scale (%d, %d) %-7s valid windows "
+                "%d, max_abs_err=%d" % (B, L, variant, nvalid, err))
+        if (B, L, variant) == (BATCH, READ_LEN, "nfree"):
+            kw = dict(L=L, k=K, w=W, min_hits=3, bin_size=1000,
+                      bucket_shift=state.bucket_shift,
+                      two_choice=state.two_choice, fused=True)
+            call = lambda: decide_packed(bt, pk, None, pn, **kw)  # noqa
+            ms = graph_ms(call)
+            ms_call = cuda_ms(call, 200)
+            ms_ref = cuda_ms(lambda: decide_packed_ref(bt, pk, None, pn,
+                                                       **kw), 5)
+            timing = dict(decide_work(bt, state.two_choice, pk, None, None,
+                                      L, True, nvalid),
+                          ms=ms, call_ms=ms_call, plain_ms=ms_ref,
+                          library_ms=None, valid_windows=nvalid)
+            b_ms, b_by = bound(timing)
+            line += (" fused kernel %.4f ms (graph replay), %.4f ms a "
+                     "wrapper call back to back; bound %.4f ms (%s, %d "
+                     "bytes) = %.1f%% of it reached; plain step %.4f ms"
+                     % (ms, ms_call, b_ms, b_by, timing["bytes"],
+                        100 * b_ms / ms, ms_ref))
+        log(line)
+        del pk, nm, ln
     return worst, timing
 
 
@@ -837,6 +1033,7 @@ def write_iteration_inputs(path: str, seed: int):
 def phase_iteration(seed: int, work: str):
     """One aligner-free iteration through `cornetto_tpu_torch.cli flow`."""
     import torch
+    from cornetto_tpu_torch.kernels.decide import decide_packed
     from cornetto_tpu_torch.kernels.extract import extract_minima
     from cornetto_tpu_torch.kernels.window_sum import window_sums
     path = os.path.join(work, "iter_s%d" % seed)
@@ -852,6 +1049,7 @@ def phase_iteration(seed: int, work: str):
     with open(cfg, "w") as f:
         json.dump({"aligner_free": True}, f)
     extract_minima.launches = 0
+    decide_packed.launches = 0
     window_sums.launches = 0
     t0 = time.perf_counter()
     run_cli_quiet(["flow", wd, fasta, fq, "--config", cfg],
@@ -859,7 +1057,8 @@ def phase_iteration(seed: int, work: str):
                                                                "flow.err"))
     torch.cuda.synchronize()
     flow_s = time.perf_counter() - t0
-    ext, ws = extract_minima.launches, window_sums.launches
+    dec, ext = decide_packed.launches, extract_minima.launches
+    ws = window_sums.launches
     n_batches = -(-n_reads // BATCH)
     with open(os.path.join(wd, ".flow.iteration.json")) as f:
         secs = {k: v["secs"] for k, v in json.load(f)["done"].items()}
@@ -874,15 +1073,15 @@ def phase_iteration(seed: int, work: str):
                 r[2] > holes[r[0]] - 40_000 and
                 r[1] < holes[r[0]] + HOLE + 40_000]
     npz = os.path.exists(os.path.join(wd, "draft.livefish.npz"))
-    log("[10 iteration] flow in %.2f s (steps %s); extraction launches %d "
-        "for %d cov batches; window-sum launches %d; panel %d rows, %d bp, "
-        "%d on contigs < 800 kb, %d within 40 kb of a hole; "
-        "draft.livefish.npz written: %s"
-        % (flow_s, secs, ext, n_batches, ws, len(rows),
+    log("[10 iteration] flow in %.2f s (steps %s); fused decision launches "
+        "%d for %d cov batches (standalone extraction %d); window-sum "
+        "launches %d; panel %d rows, %d bp, %d on contigs < 800 kb, %d "
+        "within 40 kb of a hole; draft.livefish.npz written: %s"
+        % (flow_s, secs, dec, n_batches, ext, ws, len(rows),
            sum(e - s for _, s, e in rows), len(short_rows), len(in_holes),
            npz))
-    if ext != n_batches or ws == 0 or not rows or short_rows or in_holes \
-            or not npz:
+    if dec != n_batches or ext or ws == 0 or not rows or short_rows \
+            or in_holes or not npz:
         fail("the iteration's launches or panel are wrong")
 
     # livefish cov on the first two batches: card against CPU
@@ -1689,13 +1888,14 @@ def main():
     phase_build()
     lap("2 build")
     max_err, ktimes = phase_kernels(args.seed)
+    dec_err = phase_decide_small(args.seed)
     ws_err, ws_times = phase_window_kernel(args.seed)
     lap("3 kernel")
 
     from cornetto_tpu_torch.dist.checkpoint import load_index
     from cornetto_tpu_torch.native.fastq_pack import iter_packed_batches
-    from cornetto_tpu_torch.kernels.extract import (extract_minima,
-                                                    extract_minima_ref)
+    from cornetto_tpu_torch.kernels.decide import decide_packed, pack_fused
+    from cornetto_tpu_torch.kernels.extract import extract_minima
     from cornetto_tpu_torch.livefish import decide as td
     from cornetto_tpu_torch.livefish.stream import stream_decisions
 
@@ -1726,6 +1926,9 @@ def main():
            tuple(state.panel.shape), time.perf_counter() - t0,
            torch.cuda.max_memory_allocated()))
     lap("4 state")
+    err, dec_t = phase_decide_human(args.seed, state, contigs, codes)
+    dec_err = max(dec_err, err)
+    lap("3 decide, human-scale")
 
     # [5] the slice end to end through the CLI
     n_reads = FULL_BATCHES * BATCH + TAIL
@@ -1739,19 +1942,21 @@ def main():
     tsv = os.path.join(work, "human_s%d.tsv" % args.seed)
     torch.cuda.reset_peak_memory_stats()
     extract_minima.launches = 0
+    decide_packed.launches = 0
     t0 = time.perf_counter()
     rows = run_cli(idx_path, fq, tsv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = extract_minima.launches
+    launches = decide_packed.launches
     n_batches = -(-n_reads // BATCH)
     log("[5 slice] livefish run: %d rows in %.2f s (index load + upload "
-        "included), %d kernel launches for %d batches, max_memory_allocated "
-        "%d bytes" % (len(rows), cli_s, launches, n_batches,
-                      torch.cuda.max_memory_allocated()))
-    if launches != n_batches:
-        fail("extraction kernel launched %d times for %d batches"
-             % (launches, n_batches))
+        "included), %d fused decision launches and %d standalone extraction "
+        "launches for %d batches, max_memory_allocated %d bytes"
+        % (len(rows), cli_s, launches, extract_minima.launches, n_batches,
+           torch.cuda.max_memory_allocated()))
+    if launches != n_batches or extract_minima.launches:
+        fail("fused decision kernel launched %d times (extraction %d) for %d "
+             "batches" % (launches, extract_minima.launches, n_batches))
     names = [n for n, _ in contigs]
     acc = score(rows, names, *truth)
     log("[5 slice] human-scale accuracy: right contig %.4f, right decision "
@@ -1807,24 +2012,49 @@ def main():
     kw = eng._kw(READ_LEN)
     step = lambda: td.decision_core_packed_fused(state.btable, pk, None,
                                                  state.panel, **kw)
-    ms_step = cuda_ms(step, 20)
-    ms_ext = cuda_ms(lambda: extract_minima(pk, None, READ_LEN, K, W), 50)
+
+    def old_step():
+        d, b, e, nh, _, _ = td._decide_from_minima(
+            state.btable, *extract_minima(pk, None, READ_LEN, K, W),
+            state.panel, kw["min_hits"], kw["bin_size"], state.bucket_shift,
+            state.two_choice)
+        return pack_fused(d, b, e, nh)
+    decide_packed.launches = 0
+    ms_step = cuda_ms(step, 200)
+    if decide_packed.launches != 210:
+        fail("decision_core_packed_fused launched the fused kernel %d times "
+             "in 210 steps" % decide_packed.launches)
+    ms_old = cuda_ms(old_step, 20)
+    ms_old_graph = graph_ms(old_step, 20)
+    ms_step2 = cuda_ms(step, 200)
+    ms_step_graph = graph_ms(step)
+    ms_ext = cuda_ms(lambda: extract_minima(pk, None, READ_LEN, K, W), 200)
     ms_h2d = cuda_ms(lambda: torch.from_numpy(pb.packed).cuda(), 20)
     out = step()
+    if not torch.equal(out, old_step()):
+        fail("the fused step disagrees with the earlier step")
     ms_d2h = cuda_ms(lambda: out.cpu(), 20)
-    ms_step_ref = cuda_ms(lambda: td._decide_from_minima(
-        state.btable, *extract_minima_ref(pk, None, READ_LEN, K, W),
-        state.panel, 3, 1000, state.bucket_shift, state.two_choice), 5)
+    b_ms, b_by = bound(dec_t)
     log("[7 numbers] %s" % card)
     log("[7 numbers] FASTQ->TSV %d reads in %.3f s = %.0f reads/s "
         "(index resident; %s)" % (total, e2e_s, total / e2e_s, card))
     log("[7 numbers] host parse+pack alone: %.0f reads/s" % (nparse
                                                            / parse_s))
-    log("[7 numbers] per 4096-read batch: device step %.4f ms (extraction "
-        "kernel %.4f ms, lookup+votes+policy %.4f ms), same step with the "
-        "plain extraction %.4f ms; H2D packed %.4f ms; D2H fused %.4f ms "
-        "(%s)" % (ms_step, ms_ext, ms_step - ms_ext, ms_step_ref, ms_h2d,
-                  ms_d2h, card))
+    log("[7 numbers] per 4096-read batch: device step through "
+        "decision_core_packed_fused %.4f ms, again %.4f ms (one launch, "
+        "back to back; %.4f ms by graph replay); earlier step (extraction "
+        "kernel + torch lookup, votes, policy) %.4f ms back to back, %.4f "
+        "ms by graph replay; standalone extraction kernel %.4f ms a "
+        "wrapper call; H2D packed %.4f ms; D2H fused %.4f ms (%s)"
+        % (ms_step, ms_step2, ms_step_graph, ms_old, ms_old_graph, ms_ext,
+           ms_h2d, ms_d2h, card))
+    log("[7 numbers] fused decision kernel at (4096, 450) N-free on the "
+        "human-scale index: %.4f ms, bound %.4f ms (%s: %d bytes, %d valid "
+        "windows x %d probes x 32 B gathered) = %.1f%% of the bound reached; "
+        "plain step %.4f ms (%s)"
+        % (dec_t["ms"], b_ms, b_by, dec_t["bytes"], dec_t["valid_windows"],
+           2 if state.two_choice else 1, 100 * b_ms / dec_t["ms"],
+           dec_t["plain_ms"], card))
     del eng, state, idx, panel
     torch.cuda.empty_cache()
     lap("7 numbers")
@@ -1895,8 +2125,12 @@ def main():
         % (json.dumps(phase_s), sum(phase_s.values())))
 
     table = [
+        # extraction runs inside the fused kernel on the main path: its
+        # launches are the fused kernel's, its times the standalone's
         ("extract_minima", "extract_minima", "pallas_extract.py:161",
          launches, max_err, ktimes["nfree"]),
+        ("decide", "decide", "pallas_extract.py:161", launches, dec_err,
+         dec_t),
         ("window_sum", "window_sum", "pallas_window.py:37", ws_launches,
          max(ws_err, hp_err), ws_times),
         ("sdust", "sdust", "pallas_sdust.py:316", an_launches["sdust"],

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface; it is compiled with nvcc
 for Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at
 the root of the checkout, at first use, and loaded with ctypes.  The
-library's file name carries a hash of the source and flags, so an edited
-source rebuilds.  A failed build raises: nothing falls back to a plain
+library's file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header rebuilds.  A failed build raises: nothing falls back to a plain
 version on a CUDA tensor.
 """
 
@@ -43,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / (name + ".cu")
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """build/kernels/lib<name>-<key>.so, the key a hash of csrc/<name>.cu,
+    the headers it may include and the flags."""
+    h = hashlib.sha256((CSRC / (name + ".cu")).read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / ("lib%s-%s.so" % (name, key))
 
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-minimizer extraction, window sums and window stats, the SDUST DP (against
-the port's sequential native DP too) and the two telomere kernels.
+minimizer extraction, the fused decision step (extraction, lookup, votes
+and policy in one launch), window sums and window stats, the SDUST DP
+(against the port's sequential native DP too) and the two telomere
+kernels.
 Integers and booleans throughout; tolerance: exact equality.  Inputs from a
 numpy seed.
 
@@ -14,10 +16,13 @@ neither ``jax`` nor ``cornetto_tpu`` and uses no fixture of
 (``chip_smoke.py`` runs exactly that.)  The CPU tests of the same modules
 hold the plain versions against the JAX package."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from cornetto_tpu_torch.kernels.decide import decide_packed, decide_packed_ref
 from cornetto_tpu_torch.kernels.extract import (extract_minima,
                                                 extract_minima_ref)
 from cornetto_tpu_torch.kernels.minimizer import pack_reads
@@ -34,6 +39,7 @@ from cornetto_tpu_torch.kernels.window_sum import (n_windows, window_stats,
                                                    window_sums,
                                                    window_sums_ref)
 from cornetto_tpu_torch.native.sdust import sdust
+import _decide_cases as dc  # tests/, on sys.path under pytest
 
 pytestmark = pytest.mark.cuda
 
@@ -51,11 +57,16 @@ def cuda_device():
 
 # ---------------------------------------------------------------- extraction
 
+# lanes a read (csrc/minimizer.cuh's group_size): 16 at L = 450, 32 at
+# L = 300 and 1024, 8 at 1800 and in the last two, whose windows span
+# more than 32 bases (w + k - 1 > 32) and are read a word at a time
 PARAMS = [
     (64, 450, 15, 10),
     (32, 300, 15, 10),
     (16, 1024, 13, 8),
     (8, 200, 15, 12),
+    (8, 300, 15, 40),
+    (5, 97, 1, 33),
 ]
 VARIANTS = ["nmask", "nfree", "lengths"]
 
@@ -87,6 +98,101 @@ def test_extract_kernel_matches_plain(cuda_device, B, L, k, w, variant):
     h_ref, v_ref = extract_minima_ref(args[0], args[1], L, k, w,
                                       lengths=args[2])
     assert torch.equal(h, h_ref) and torch.equal(v, v_ref)
+
+
+# ---------------------------------------------------------- fused decision
+
+# (C, two_choice, bases besides the last contig, slots a bucket): both
+# sides of the plain version's one-hot / scatter switch (C <= 64), a table
+# at high occupancy (hits split across the two probes), 8 and 16 slots
+DECIDE_CASES = [(c, tc, 60_000, 4) for c in (3, 64, 65, 300)
+                for tc in (True, False)] + \
+    [(4, True, 3_000_000, 4), (5, True, 60_000, 8), (5, False, 60_000, 16)]
+
+
+@functools.lru_cache(maxsize=None)
+def _decide_index(case, L):
+    C, two_choice, total, slots = case
+    return dc.index(8, C, two_choice, L=L, slots=slots, total=total)
+
+
+def _check_decide(dev, case, variant, min_hits, B=64, L=450):
+    """decide_packed on the card, both output forms, against
+    decide_packed_ref on the same tensors; one launch a call."""
+    idx, panel, codes = _decide_index(case, L)
+    packed, nmask, lengths, rows = dc.batch(8, idx, panel, codes, variant,
+                                            B=B, L=L)
+    put = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa
+    args = (put(idx.btable[0]), put(packed), put(nmask), put(panel))
+    kw = dict(L=L, k=idx.k, w=idx.w, min_hits=min_hits, bin_size=1000,
+              bucket_shift=idx.bucket_shift, two_choice=idx.two_choice,
+              lengths=put(lengths))
+    for fused in (False, True):
+        before = decide_packed.launches
+        got = decide_packed(*args, fused=fused, **kw)
+        torch.cuda.synchronize()
+        assert decide_packed.launches == before + 1
+        want = decide_packed_ref(*args, fused=fused, **kw)
+        if fused:
+            assert got.shape == (2, B) and got.dtype == torch.int32
+            assert torch.equal(got, want)
+        else:
+            assert len(got) == 6
+            for g, r in zip(got, want):
+                assert g.dtype == r.dtype and torch.equal(g, r)
+    return got, rows
+
+
+@pytest.mark.parametrize("min_hits", [0, 3])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("case", DECIDE_CASES)
+def test_decide_kernel_matches_plain(cuda_device, case, variant, min_hits):
+    _check_decide(cuda_device, case, variant, min_hits)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("B,L", [(4096, 450), (512, 1800), (1000, 450)])
+def test_decide_kernel_main_path_shapes(cuda_device, B, L, variant):
+    """The decision loop's batch, the chunk engine's longest read and a
+    short tail, on the C = 3 draft."""
+    fused, rows = _check_decide(cuda_device, DECIDE_CASES[0], variant, 3,
+                                B=B, L=L)
+    nhits = (fused[0] >> 16) & 0x3FFF
+    assert int((nhits[rows["genomic"]] > 0).sum()) > len(rows["genomic"]) // 2
+
+
+def test_decide_kernel_rejects_a_misaligned_table(cuda_device):
+    idx, panel, codes = _decide_index(DECIDE_CASES[0], 450)
+    packed, _, _, _ = dc.batch(8, idx, panel, codes, "nfree")
+    flat = torch.from_numpy(idx.btable[0]).to(cuda_device).reshape(-1)
+    rows = idx.btable.shape[1] // 2                  # a power of two
+    view = flat[1:1 + rows * 8].reshape(rows, 8)     # 4 bytes off
+    assert view.is_contiguous() and view.data_ptr() % 16
+    before = decide_packed.launches
+    with pytest.raises(ValueError):
+        decide_packed(view, torch.from_numpy(packed).to(cuda_device), None,
+                      torch.from_numpy(panel).to(cuda_device), L=450,
+                      k=idx.k, w=idx.w, min_hits=3, bin_size=1000,
+                      bucket_shift=idx.bucket_shift,
+                      two_choice=idx.two_choice)
+    assert decide_packed.launches == before
+
+
+def test_engine_decides_a_batch_in_one_launch(cuda_device):
+    """SingleChipEngine on the card: decide_packed_fused and decide_packed
+    each launch the fused kernel once and extraction never."""
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    idx, panel, codes = _decide_index(DECIDE_CASES[0], 450)
+    packed, nmask, lengths, _ = dc.batch(8, idx, panel, codes, "lengths")
+    eng = SingleChipEngine(idx, panel, device=cuda_device)
+    before = (decide_packed.launches, extract_minima.launches)
+    fused = eng.decide_packed_fused(packed, None, 450, lengths=lengths)
+    six = eng.decide_packed(packed, None, 450, lengths=lengths)
+    torch.cuda.synchronize()
+    assert (decide_packed.launches, extract_minima.launches) == (
+        before[0] + 2, before[1])
+    assert torch.equal(fused[0] & 0xFFFF, six[1])
+    assert torch.equal(fused[1], six[2])
 
 
 # ---------------------------------------------------------------- window sum

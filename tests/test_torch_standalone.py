@@ -1,7 +1,8 @@
 """The port stands alone: no source file of ``cornetto_tpu_torch`` (nor
-``chip_smoke.py`` or ``bench_telo_mask.py``, nor the card tests of
-tests/test_torch_cuda_kernels.py,
-which run where JAX is not installed) imports the JAX package, and the
+``chip_smoke.py``, ``bench_decide.py`` or ``bench_telo_mask.py``, nor the
+card tests of tests/test_torch_cuda_kernels.py and their cases in
+tests/_decide_cases.py, which run where JAX is not installed) imports the
+JAX package, and the
 port's CLI entry points not covered by the other no-jax tests leave both
 ``jax`` and ``cornetto_tpu`` out of ``sys.modules`` in a fresh interpreter.
 The two packages share only the ``.npz`` index format
@@ -18,7 +19,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "cornetto_tpu_torch").rglob("*.py")) + \
-    ["bench_telo_mask.py", "chip_smoke.py",
+    ["bench_decide.py", "bench_telo_mask.py", "chip_smoke.py",
+     "tests/_decide_cases.py",
      "tests/test_torch_cuda_kernels.py"]
 
 
@@ -51,6 +53,8 @@ def test_sources_listed():
     assert len(SOURCES) > 40
     assert "cornetto_tpu_torch/cli.py" in SOURCES
     assert "tests/test_torch_cuda_kernels.py" in SOURCES
+    assert "cornetto_tpu_torch/kernels/decide.py" in SOURCES
+    assert "tests/_decide_cases.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)

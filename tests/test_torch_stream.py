@@ -80,13 +80,14 @@ def test_livefish_run_tsv_matches_jax(tmp_path, capsys, monkeypatch,
     idx = _build_index(tmp_path, draft, bed)
     from cornetto_tpu_torch.livefish import decide as td
     seen = []
-    real = td.extract_minima
+    real = td.decide_packed
 
-    def spy(packed, nmask, L, k, w, lengths=None):
+    def spy(btable, packed, nmask, panel, lengths=None, fused=False, **kw):
         seen.append("nmask" if nmask is not None else
                     "lengths" if lengths is not None else "nfree")
-        return real(packed, nmask, L, k, w, lengths=lengths)
-    monkeypatch.setattr(td, "extract_minima", spy)
+        return real(btable, packed, nmask, panel, lengths=lengths,
+                    fused=fused, **kw)
+    monkeypatch.setattr(td, "decide_packed", spy)
     capsys.readouterr()
     argv = ["cornetto", "livefish", "run", idx, str(reads), "-b", "8"]
     assert jax_cli.main(argv) == 0
