@@ -21,7 +21,8 @@ checkout.  It:
    (chr1's two tracks timed, with x.unfold(...).sum(...) as the library
    yardstick);
 4. builds a seeded synthetic draft at human scale (GRCh38's chromosome
-   lengths, 3.09 Gbp in 87 contigs), its minimizer index (the port's host
+   lengths, 3.09 Gbp in 87 contigs, with 10,000 copies of one 1,500-base
+   repeat element planted in it), its minimizer index (the port's host
    index build) and a panel of half its 1 Mb blocks, under build/smoke/
    (reused on a rerun with the same seed), and uploads the index;
 5. runs 64 full batches of 4096 sampled 450-base reads plus a short tail
@@ -54,8 +55,12 @@ checkout.  It:
    and PR 3's single pass, on seeded mixed chunks at core 512, also at
    W = 3, 4, 8 and 66 with T = 5 or 14 and a budget of 16 row-steps, and at
    the main path's shape, core 2048, on chunks of the draft's 20 Mb slice
-   plus overflow rows; chr1's length as one row; read batches with
-   telomeric arrays and the doubling-cap cases), and times both; SDUST's
+   plus overflow rows; chr1's length as one row; the run stats on read
+   batches with telomeric arrays at RS_SHAPES: the doubling-cap lengths,
+   lengths about the bitset's words and lanes, and rows past the bitset's
+   4,096 bases on the row walk, each bit-equal to the plain version for
+   both motifs and timed by CUDA-graph replay; at (4096, 450) and (4096,
+   1800) the row walk, the first design, too), and times both; SDUST's
    two designs are timed in turns (old, new, new, old) on the slice chunks
    alone, the seeded rows alone, the costliest row alone (by the plain
    version's find_perfect row-steps) and the main-path case; then the two
@@ -83,7 +88,22 @@ checkout.  It:
 14. runs the `cuda`-marked tests of tests/test_torch_cuda_kernels.py
    through `python -m pytest --noconftest -m cuda` in a subprocess (the
    file imports neither jax nor the JAX package) and requires every test
-   it collects to pass.
+   it collects to pass;
+15. `livefish replay` (the read-until chunk engine) on the human-scale
+   index through `cornetto_tpu_torch.cli`, 60,000 seeded reads of 2-20 kb
+   (written in phase 5 as FASTA, about half starting in a panel block, 30%
+   starting inside a copy of a repeat element planted in the draft, which
+   the index masks, so that a head longer than about a chunk is decided on
+   a later chunk's accumulated prefix) in 448-base
+   chunks: host and device state at 512 channels (a MinION flow cell, the
+   CLI's default) and at 3000 (about a PromethION flow cell, 20 reads a
+   channel), their stdout byte-equal, with ticks/s, decisions/s, fused
+   launches a tick and the decisions by the chunks they consumed (the run
+   fails if no read is decided after its first chunk); the
+   card's host state byte-equal to a CORNETTO_FORCE_CPU=1 run on the first
+   256 reads; then one device tick at 512 and 3000 channels (scatter,
+   gather, fused kernel) held equal to the plain step and timed by graph
+   replay, and its device operations from torch.profiler.
 
 Phase 2 builds the five kernel sources in parallel; phases 3 and 11 hold
 each kernel bit-equal to its plain PyTorch version on the card.  Imports
@@ -123,7 +143,12 @@ WIN, INC = 2500, 50                      # boringbits' default window
 # find_perfect row-step (count lookup and update, the r update, the firing
 # test, the ratio comparisons); a byte compare of the motif match, counted
 # as the input needs them when each start stops at its first mismatch
-# (early_exit_compares).  The fused decision step moves the packed reads
+# (early_exit_compares); a 32-position word of the run stats' match
+# bitset, four bytes a compare (an XOR and an OR for each of its 8 words a
+# motif code) and 3 ops a doubling step (stats_word_ops; the TPU kernel's
+# dense count, 2k byte compares and 3 ops a doubling step a base, is
+# printed beside it: the first design was held to it).  The fused
+# decision step moves the packed reads
 # (with their bitmap or lengths), one bucket row a probe of each valid
 # window of this run's reads, a panel byte and its outputs a read; its
 # operations are counted as extraction's (decide_work).
@@ -131,6 +156,15 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 EXTRACT_OPS_KMER = 25
 SDUST_OPS_BASE, SDUST_OPS_ROW_STEP = 20, 8
+# run-stats shapes of phase 11: the read batches at 450 and 1800 (the main
+# shapes, timed against the first design too), the doubling-cap lengths, rows
+# shorter than the motif, lengths about the bitset's 32-position words and
+# its 32-lane groups (1,024 positions), the bitset's longest row and rows
+# past it (the row walk)
+RS_SHAPES = [(4096, 450), (4096, 1800), (4096, 18), (4096, 19), (4096, 42),
+             (64, 5), (4096, 31), (4096, 32), (4096, 33), (4096, 1024),
+             (4096, 1025), (256, 4096), (64, 4097), (2, 1_000_003)]
+STATS_BITSET_MAX_L = 4096            # csrc/telo.cu's kStatsMaxL
 
 
 def early_exit_compares(x, motif) -> int:
@@ -146,6 +180,12 @@ def early_exit_compares(x, motif) -> int:
         alive[..., :L - j] &= x[..., j:] == m
         alive[..., L - j:] = False
     return total
+
+
+def stats_word_ops(B: int, L: int, k: int, steps: int) -> int:
+    """Operations of the run stats at (B, L) at the bitset's granularity
+    (see above); the dense count is B * L * (2 k + 3 steps)."""
+    return B * (-(-max(L - k + 1, 0) // 32)) * (16 * k + 3 * steps)
 
 
 def bound(work):
@@ -773,7 +813,10 @@ def run_cli_quiet(argv, stdout_path: str, stderr_path: str) -> None:
     from cornetto_tpu_torch.cli import main as cli
     with open(stdout_path, "w") as fo, open(stderr_path, "w") as fe, \
             contextlib.redirect_stdout(fo), contextlib.redirect_stderr(fe):
-        rc = cli(["cornetto"] + argv)
+        try:
+            rc = cli(["cornetto"] + argv)
+        except SystemExit as e:          # log.die
+            rc = e.code
     if rc != 0:
         with open(stderr_path) as f:
             tail = f.read()[-2000:]
@@ -1495,7 +1538,8 @@ def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
     its ms and plain_ms are the main-path case's."""
     import torch
     from cornetto_tpu_torch.kernels.sdust import max_intervals
-    from cornetto_tpu_torch.kernels.telo import (_steps_for, telo_match_mask,
+    from cornetto_tpu_torch.kernels.telo import (_stats_launch, _steps_for,
+                                                 telo_match_mask,
                                                  telo_match_mask_ref,
                                                  telo_match_positions,
                                                  telo_run_stats,
@@ -1592,31 +1636,68 @@ def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
     del chr1
     torch.cuda.empty_cache()
 
-    worst, timing = 0, None
-    for B, L in ((4096, 450), (4096, 1800), (4096, 18), (4096, 19),
-                 (4096, 42), (64, 5)):
+    worst, times = 0, {}
+    k = len(TTAGGG)
+    for B, L in RS_SHAPES:
+        steps = _steps_for(L - k + 1, k)
         x = torch.from_numpy(_telo_reads(seed, B, L)).to(dev)
+        # the first design at the main shapes: the row walk (route 1) into
+        # outputs allocated once, and the cast of its terminal bytes to
+        # bool that its wrapper made (its motif upload, a host copy, cannot
+        # be captured)
+        old = None if L not in (450, 1800) else (
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev),
+            torch.zeros(B, dtype=torch.uint8, device=dev))
         for motif in (TTAGGG, CCCTAA):
-            got = telo_run_stats(x, motif)
             ref = telo_run_stats_ref(x, motif)
-            e = max(int((g.int() - r.int()).abs().max())
-                    for g, r in zip(got, ref))
-            worst = max(worst, e)
-            log("[11 annotation kernels] telo_run_stats (%d, %d) motif %s: "
-                "max_abs_err=%d, reads with a match %d, longest %d copies, "
-                "terminal %d" % (B, L, motif, e, int((got[0] > 0).sum()),
-                                 int(got[1].max()), int(got[2].sum())))
-            if e or not all(torch.equal(g, r) for g, r in zip(got, ref)):
-                fail("run-stats kernel disagrees with its plain version")
-        if (B, L) == (4096, 450):
-            timing = (cuda_ms(lambda: telo_run_stats(x, TTAGGG), 50),
-                      cuda_ms(lambda: telo_run_stats_ref(x, TTAGGG), 10))
-            log("[11 annotation kernels] telo_run_stats (4096, 450): kernel "
-                "%.4f ms plain %.4f ms" % timing)
-    B, L, m = 4096, 450, len(TTAGGG)
-    out["telo_run_stats"] = dict(
-        err=worst, ms=timing[0], plain_ms=timing[1], bytes=B * L + 9 * B,
-        ops=B * L * (2 * m + 3 * _steps_for(L, m)))
+            runs = [("bitset" if L <= STATS_BITSET_MAX_L else "row walk",
+                     telo_run_stats(x, motif))]
+            if old:
+                _stats_launch(x, motif, 24, 1, *old[:3])
+                runs.append(("row walk (first design)", old[:3]))
+            for name, got in runs:
+                e = max(int((g.int() - r.int()).abs().max())
+                        for g, r in zip(got, ref))
+                worst = max(worst, e)
+                log("[11 annotation kernels] telo_run_stats (%d, %d) motif "
+                    "%s, %s: max_abs_err=%d, reads with a match %d, longest "
+                    "%d copies, terminal %d"
+                    % (B, L, motif, name, e, int((got[0] > 0).sum()),
+                       int(got[1].max()), int(got[2].sum())))
+                if e or not all(g.dtype == r.dtype and torch.equal(g, r)
+                                for g, r in zip(got, ref)):
+                    fail("run-stats kernel disagrees with its plain version")
+        t = dict(ms=graph_ms(lambda: telo_run_stats(x, TTAGGG)))
+        line = "graph replay %.4f ms" % t["ms"]
+        if old:
+            t.update(
+                old_ms=graph_ms(lambda: (_stats_launch(x, TTAGGG, 24, 1,
+                                                       *old[:3]),
+                                         old[3].to(torch.bool))),
+                call_ms=cuda_ms(lambda: telo_run_stats(x, TTAGGG), 200),
+                plain_ms=cuda_ms(lambda: telo_run_stats_ref(x, TTAGGG), 10),
+                bytes=B * L + 9 * B,
+                ops=stats_word_ops(B, L, k, steps),
+                dense_ops=B * L * (2 * k + 3 * steps))
+            b_ms, b_by = bound(t)
+            dense_ms = t["dense_ops"] / INT32_OPS_PER_S * 1e3
+            line += ("; the first design (row walk + bool cast) %.4f ms "
+                     "(graph replay); a wrapper call back to back %.4f ms; "
+                     "plain %.4f ms; "
+                     "bound %.4f ms (%s; %d bytes, %d word ops) = %.1f%% of "
+                     "it reached; the TPU kernel's dense count, %d ops, "
+                     "over the int32 rate: %.4f ms"
+                     % (t["old_ms"], t["call_ms"], t["plain_ms"], b_ms, b_by,
+                        t["bytes"], t["ops"], 100 * b_ms / t["ms"],
+                        t["dense_ops"], dense_ms))
+        times[(B, L)] = t
+        log("[11 annotation kernels] telo_run_stats (%d, %d) TTAGGG: %s"
+            % (B, L, line))
+        del x, old
+    out["telo_run_stats"] = dict(err=worst, times=times,
+                                 **times[(4096, 450)])
     # the doubling cap: 3 copies in 18 bases report 2, as the JAX function
     cap = torch.tensor([TTAGGG * 3], dtype=torch.uint8, device=dev)
     n_, longest, _ = telo_run_stats(cap, TTAGGG)
@@ -1863,6 +1944,284 @@ def phase_annotation(seed: int, draft: str, slice_fa: str, contigs):
     return launches, secs, stats, tf_split
 
 
+# ---------------------------------------------------------------- replay
+
+# 20 reads a channel at 3000 channels (about 117 at 512): 60,000 reads of
+# 2-20 kb, 0.66 Gbp, so each cell runs hundreds of ticks and of fused
+# launches; the CPU check takes the first 256
+REPLAY_READS, REPLAY_CPU_READS = 60_000, 256
+# a repeat family planted in the human draft (phase 4): REPEAT_COPIES
+# copies, either strand, of one seeded REPEAT_LEN-base element, as an L1
+# family (15 Mbp, 0.49% of the genome; L1 is 17%).  A copy's minimizers
+# depend on its strand and its start modulo the window stride (20
+# classes); with 10,000 copies each minimizer of any piece of the element
+# still occurs more often than the index's repeat cap (256), so the index
+# masks them: the element is unmappable.  (Random sequence is no unmappable
+# head at 3.09 Gbp: nearly every 15-mer minimizer of it is in the index,
+# so a random 448-base chunk always reaches min_hits on some contig.)
+REPEAT_LEN, REPEAT_COPIES = 1500, 10_000
+# a share of the replay reads starts inside a copy: a 200-1,500-base piece
+# of the element in place of the read's first bases, so a head longer
+# than about a chunk is decided on the accumulated prefix of a later
+# chunk (chunk slots 1-3 of the device state)
+REPLAY_REPEAT_SHARE, REPLAY_REPEAT_HEAD = 0.3, (200, 1500)
+# bases a chunk: the CLI's 450 is not a multiple of 4, which the device
+# state's 2-bit chunk slots need, so both states take 448 (~1 s of a pore)
+REPLAY_CHUNK = 448
+# (label, channels = batch): the CLI's default, a MinION flow cell; about a
+# PromethION flow cell
+REPLAY_CELLS = [("MinION", 512), ("PromethION", 3000)]
+
+
+def plant_repeats(seed: int, contigs, codes):
+    """Write REPEAT_COPIES seeded copies of one REPEAT_LEN-base element
+    into the draft's codes, in place, half of them reverse-complemented;
+    returns the element."""
+    import numpy as np
+    rng = np.random.default_rng([seed, 19])
+    elem = rng.integers(0, 4, size=REPEAT_LEN, dtype=np.uint8)
+    lens = np.array([n for _, n in contigs], dtype=np.int64)
+    for _ in range(REPEAT_COPIES):
+        c = int(rng.choice(len(contigs), p=lens / lens.sum()))
+        s = int(rng.integers(0, lens[c] - REPEAT_LEN))
+        codes[c][s:s + REPEAT_LEN] = elem if rng.random() < 0.5 \
+            else 3 - elem[::-1]
+    return elem
+
+
+def write_replay_reads(path: str, seed: int, contigs, codes, rows,
+                       block: int, n_reads: int, elem):
+    """n_reads seeded full-length reads of 2-20 kb (uniform) of the draft
+    as FASTA, half reverse-complemented, about half starting inside a
+    panel block, REPLAY_REPEAT_SHARE of them with a head of the repeat
+    element elem; returns (the number of bases, the number of repeat
+    heads)."""
+    import numpy as np
+    rng = np.random.default_rng([seed, 17])
+    ascii_ = np.frombuffer(b"ACGT", dtype=np.uint8)
+    lens = np.array([n for _, n in contigs], dtype=np.int64)
+    names = [n for n, _ in contigs]
+    panel = {}
+    for name, st, _ in rows:
+        panel.setdefault(name, []).append(st // block)
+    total = heads = 0
+    with open(path, "wb") as f:
+        for i in range(n_reads):
+            ln = int(rng.integers(2000, 20001))
+            c = int(rng.choice(len(contigs), p=lens / lens.sum()))
+            blocks = panel.get(names[c], [])
+            if rng.random() < 0.5 and blocks:
+                b = blocks[int(rng.integers(0, len(blocks)))]
+                s = b * block + int(rng.integers(0, block))
+            else:
+                s = int(rng.integers(0, lens[c]))
+            s = max(0, min(s, int(lens[c]) - ln))
+            read = codes[c][s:s + ln]
+            if rng.random() < 0.5:
+                read = 3 - read[::-1]
+            if rng.random() < REPLAY_REPEAT_SHARE:
+                hl = int(rng.integers(REPLAY_REPEAT_HEAD[0],
+                                      REPLAY_REPEAT_HEAD[1] + 1))
+                o = int(rng.integers(0, REPEAT_LEN - hl + 1))
+                head = elem[o:o + hl]
+                if rng.random() < 0.5:
+                    head = 3 - head[::-1]
+                read = np.concatenate([head, read[hl:]])
+                heads += 1
+            f.write(b">rr%d\n%s\n" % (i, ascii_[read].tobytes()))
+            total += ln
+    return total, heads
+
+
+def _replay(idx_path: str, fq: str, argv, out: str):
+    """One `livefish replay` through the port's CLI in this process, its
+    stdout to out: (stdout text, stats) with the replay's own seconds
+    (replay_read_until, the index load left out), its ticks (process()
+    calls), decisions and fused kernel launches, counted from 0; the
+    decisions by the chunks they consumed (by_chunks) and the reads'
+    final decisions (unblock, stop receiving, or proceed at max_chunks) by
+    the same (final_by_chunks)."""
+    import torch
+    from cornetto_tpu_torch.kernels.decide import decide_packed
+    from cornetto_tpu_torch.livefish import chunks
+    st = dict(ticks=0, decisions=0, replay_s=0.0, by_chunks={},
+              final_by_chunks={})
+    last = chunks.ChunkPolicy().max_chunks       # the CLI's -m default
+    saved = {}
+
+    def counted(cls, name):
+        fn = saved[(cls, name)] = getattr(cls, name)
+
+        def wrap(self, *a):
+            res = fn(self, *a)
+            st["ticks"] += name == "process"
+            st["decisions"] += len(res)
+            for d in res:
+                n = d.n_chunks
+                st["by_chunks"][n] = st["by_chunks"].get(n, 0) + 1
+                if d.action != chunks.PROCEED or n >= last:
+                    st["final_by_chunks"][n] = \
+                        st["final_by_chunks"].get(n, 0) + 1
+            return res
+        setattr(cls, name, wrap)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        res = saved["replay"](*a, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        st["replay_s"] += time.perf_counter() - t0
+        return res
+    for cls in (chunks.ChunkDecisionEngine, chunks.DeviceChunkEngine):
+        for name in ("process", "drain"):
+            if name in vars(cls):
+                counted(cls, name)
+    saved["replay"] = chunks.replay_read_until
+    chunks.replay_read_until = timed
+    decide_packed.launches = 0
+    try:
+        run_cli_quiet(["livefish", "replay", idx_path, fq] + argv, out,
+                      out + ".err")
+    finally:
+        chunks.replay_read_until = saved.pop("replay")
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, fn)
+    st["launches"] = decide_packed.launches
+    with open(out) as f:
+        return f.read(), st
+
+
+def _tick_device(state, eng, C: int, chunk_len: int = REPLAY_CHUNK,
+                 max_chunks: int = 4):
+    """One device tick at C channels on the human-scale index: the fused
+    result of chunk_tick_core held equal to the plain step on the gathered
+    prefixes, its device time by graph replay (scatter + gather + fused
+    kernel, inputs on the card), a whole decide_chunk_tick (the packed
+    host upload included) back to back, and the device operations of one
+    decide_chunk_tick from torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cornetto_tpu_torch.kernels.decide import decide_packed_ref
+    from cornetto_tpu_torch.livefish import decide as td
+    rng = np.random.default_rng([C, 18])
+    nb, L = chunk_len // 4, chunk_len * max_chunks
+    rows = rng.integers(0, 256, size=(C, nb), dtype=np.uint8)
+    sc = np.arange(C, dtype=np.int32)
+    slots = rng.integers(0, max_chunks, size=C).astype(np.int32)
+    dc = rng.permutation(C).astype(np.int32)
+    lengths = (chunk_len * rng.integers(1, max_chunks + 1, size=C)
+               ).astype(np.int32)
+    buf = eng.init_chunk_state(C, chunk_len, max_chunks)
+    buf.copy_(torch.randint(0, 256, buf.shape, dtype=torch.uint8,
+                            device=buf.device))
+    dev = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    args = (dev(rows), dev(sc).long(), dev(slots).long(), dev(dc).long(),
+            dev(lengths), state.panel)
+    kw = eng._kw(L)
+    _, fused = td.chunk_tick_core(buf, state.btable, *args[:5], args[5],
+                                  **kw)
+    g = buf.index_select(0, args[3]).reshape(C, -1)
+    want = decide_packed_ref(state.btable, g, None, state.panel,
+                             lengths=args[4], fused=True, **kw)
+    err = int((fused.long() - want.long()).abs().max())
+    if err or not torch.equal(fused, want):
+        fail("replay tick at %d channels disagrees with the plain step" % C)
+    ms = graph_ms(lambda: td.chunk_tick_core(buf, state.btable, *args[:5],
+                                             args[5], **kw))
+    call_ms = cuda_ms(lambda: eng.decide_chunk_tick(buf, rows, sc, slots, dc,
+                                                    lengths), 50)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.decide_chunk_tick(buf, rows, sc, slots, dc, lengths)[1].cpu()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(err=err, ms=ms, call_ms=call_ms, ops=ops)
+
+
+def phase_replay(seed: int, work: str, idx_path: str, fq: str):
+    """`livefish replay` on the human-scale index through the port's CLI:
+    host and device state at 512 and 3000 channels (stdout byte-equal),
+    host state on the card against a CORNETTO_FORCE_CPU=1 run on the first
+    reads; ticks/s, decisions/s and launches a tick; then the device tick
+    in this process (equal to the plain step, timed by graph replay, its
+    device operations)."""
+    import torch
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    from cornetto_tpu_torch.livefish import decide as td
+    res = {}
+    for cell, C in REPLAY_CELLS:
+        outs = {}
+        for state in ("host", "device"):
+            out, st = _replay(idx_path, fq, ["-c", str(REPLAY_CHUNK),
+                                             "-n", str(C), "-b", str(C),
+                                             "--state", state],
+                              os.path.join(work, "replay_%d_%s.txt"
+                                           % (C, state)))
+            outs[state] = out
+            res[(C, state)] = st
+            log("[15 replay] %s, %d channels, --state %s: %d ticks, %d "
+                "decisions in %.2f s of replay = %.1f ticks/s, %.0f "
+                "decisions/s; %d fused decision launches = %.3f a tick; "
+                "report %s"
+                % (cell, C, state, st["ticks"], st["decisions"],
+                   st["replay_s"], st["ticks"] / st["replay_s"],
+                   st["decisions"] / st["replay_s"], st["launches"],
+                   st["launches"] / st["ticks"],
+                   out.strip().replace("\n", "; ").replace("\t", " ")))
+            fin = st["final_by_chunks"]
+            later = sum(v for n, v in fin.items() if n > 1)
+            st["later_share"] = later / max(sum(fin.values()), 1)
+            log("[15 replay] %s, %d channels, --state %s: decisions by "
+                "chunks consumed %s; reads' final decisions by chunks "
+                "consumed %s: %.2f%% after the first chunk"
+                % (cell, C, state, dict(sorted(st["by_chunks"].items())),
+                   dict(sorted(fin.items())), 100 * st["later_share"]))
+            if not st["launches"] or not st["decisions"] or not later:
+                fail("replay at %d channels (%s) launched no fused kernel, "
+                     "decided nothing or decided every read on its first "
+                     "chunk" % (C, state))
+        same = outs["host"] == outs["device"]
+        log("[15 replay] %d channels: host and device state stdout "
+            "byte-equal: %s" % (C, same))
+        if not same or "unblocked\t0\n" in outs["host"]:
+            fail("replay at %d channels: the states differ or nothing was "
+                 "unblocked" % C)
+    head = os.path.join(work, "replay_head.fa")
+    with open(fq, "rb") as src, open(head, "wb") as dst:
+        for _ in range(2 * REPLAY_CPU_READS):
+            dst.write(src.readline())
+    argv = ["-c", str(REPLAY_CHUNK), "-n", "64", "-b", "64"]
+    card, _ = _replay(idx_path, head, argv,
+                      os.path.join(work, "replay_head_card.txt"))
+    t0 = time.perf_counter()
+    with force_cpu():
+        cpu, _ = _replay(idx_path, head, argv,
+                         os.path.join(work, "replay_head_cpu.txt"))
+    log("[15 replay] first %d reads, 64 channels: the card's stdout "
+        "byte-equal to a CORNETTO_FORCE_CPU=1 run's (%.1f s): %s"
+        % (REPLAY_CPU_READS, time.perf_counter() - t0, card == cpu))
+    if card != cpu:
+        fail("replay on the card differs from the CPU run")
+    idx, panel, _ = load_index(idx_path)
+    eng = td.SingleChipEngine(idx, panel, device="cuda")
+    del idx
+    for _, C in REPLAY_CELLS:
+        t = res[(C, "tick")] = _tick_device(eng.state, eng, C)
+        kernels = [o for o in t["ops"] if "emcpy" not in o]
+        log("[15 replay] device tick at %d x %d: scatter + gather + fused "
+            "kernel %.4f ms by graph replay, max_abs_err=%d against the "
+            "plain step; decide_chunk_tick back to back (packed upload "
+            "included) %.4f ms; one tick's device operations (profiler): %d "
+            "kernels + %d copies: %s"
+            % (C, 4 * REPLAY_CHUNK, t["ms"], t["err"], t["call_ms"],
+               len(kernels), len(t["ops"]) - len(kernels), t["ops"]))
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1906,10 +2265,13 @@ def main():
     contigs = human_draft(args.seed)
     t0 = time.perf_counter()
     codes = genome_codes(args.seed, contigs)
+    elem = plant_repeats(args.seed, contigs, codes)
     rows_bed = panel_rows(args.seed, contigs, 1_000_000)
-    log("[4 state] draft: %d contigs, %d bp, largest %d bp, generated in "
-        "%.1f s" % (len(contigs), sum(n for _, n in contigs),
-                    max(n for _, n in contigs), time.perf_counter() - t0))
+    log("[4 state] draft: %d contigs, %d bp, largest %d bp, %d copies of a "
+        "%d-base repeat element, generated in %.1f s"
+        % (len(contigs), sum(n for _, n in contigs),
+           max(n for _, n in contigs), REPEAT_COPIES, REPEAT_LEN,
+           time.perf_counter() - t0))
     idx_path = os.path.join(work, "human_s%d" % args.seed)
     build_or_load_index(idx_path, contigs, codes, rows_bed)
     t0 = time.perf_counter()
@@ -1938,6 +2300,14 @@ def main():
                         n_reads)
     log("[5 slice] wrote %d reads (%d batches of %d) in %.1f s"
         % (n_reads, -(-n_reads // BATCH), BATCH, time.perf_counter() - t0))
+    rfq = os.path.join(work, "replay_s%d.fa" % args.seed)
+    t0 = time.perf_counter()
+    r_bases, r_heads = write_replay_reads(rfq, args.seed, contigs, codes,
+                                          rows_bed, 1_000_000, REPLAY_READS,
+                                          elem)
+    log("[5 slice] wrote %d replay reads of 2-20 kb (%d bases, %d with a "
+        "repeat head) in %.1f s" % (REPLAY_READS, r_bases, r_heads,
+                                    time.perf_counter() - t0))
     del codes
     tsv = os.path.join(work, "human_s%d.tsv" % args.seed)
     torch.cuda.reset_peak_memory_stats()
@@ -2083,6 +2453,8 @@ def main():
     torch.cuda.empty_cache()
     phase_cuda_tests(work)
     lap("14 cuda tests")
+    rp = phase_replay(args.seed, work, idx_path, rfq)
+    lap("15 replay")
     log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
         "W=%d S=%d: %.4f ms, plain %.4f ms, x.unfold(...).sum(...) %.4f ms "
         "(%s)" % (WIN, INC, ws_times["ms"], ws_times["plain_ms"],
@@ -2121,6 +2493,26 @@ def main():
         "ms, plain %.1f ms; bound %.4f ms (%s) (%s)"
         % (sd["ms"], sd["heavy_rows"], sd["old_ms"], sd["plain_ms"],
            *bound(sd), card))
+    for (B, L), t in ak["telo_run_stats"]["times"].items():
+        if "old_ms" in t:
+            log("[7 numbers] telomere run-stats kernel at (%d, %d): %.4f ms "
+                "by graph replay (the first design, row walk + bool cast, "
+                "%.4f ms), a wrapper call back to back %.4f ms, bound %.4f "
+                "ms (%s), "
+                "plain %.4f ms (%s)" % (B, L, t["ms"], t["old_ms"],
+                                        t["call_ms"], *bound(t),
+                                        t["plain_ms"], card))
+    for _, C in REPLAY_CELLS:
+        h, d, t = rp[(C, "host")], rp[(C, "device")], rp[(C, "tick")]
+        log("[7 numbers] livefish replay at %d channels, %d reads: %d "
+            "ticks, %d fused launches, %.2f%% of the final decisions after "
+            "the first chunk; host state %.1f ticks/s, %.0f decisions/s; "
+            "device state %.1f ticks/s, %.0f decisions/s; device tick %.4f "
+            "ms by graph replay (%s)"
+            % (C, REPLAY_READS, d["ticks"], d["launches"],
+               100 * d["later_share"], h["ticks"] / h["replay_s"],
+               h["decisions"] / h["replay_s"], d["ticks"] / d["replay_s"],
+               d["decisions"] / d["replay_s"], t["ms"], card))
     log("[phases] seconds: %s; total %.1f s"
         % (json.dumps(phase_s), sum(phase_s.values())))
 

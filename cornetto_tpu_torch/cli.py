@@ -1,6 +1,6 @@
 """`cornetto` CLI of the PyTorch port: counterpart of cornetto_tpu/cli.py.
 
-Ported: ``livefish`` (run | index | toml | cov), ``boringbits``,
+Ported: ``livefish`` (run | index | toml | cov | replay), ``boringbits``,
 ``noboringbits``, ``create-panel``, ``flow``, ``sdust`` and ``telofind``;
 ``telowin`` and ``telobreaks`` are the port's copies of the JAX package's
 host tools.  Every other subcommand of the JAX package exits 1 with "not yet
@@ -39,7 +39,7 @@ def print_usage(fp) -> int:
     fp.write("       create-panel    create-cornetto pipeline "
              "(fa2bed+noboringbits+intervals+bigenough)\n")
     fp.write("       livefish        real-time adaptive-sampling decision "
-             "engine (run | index | toml | cov)\n")
+             "engine (run | index | toml | cov | replay)\n")
     fp.write("       flow            one-iteration orchestrator "
              "(align/cov+panel+telostats+index)\n")
     fp.write("\n")

@@ -103,8 +103,8 @@ def _lib():
         lib.cornetto_telo_mask.restype = ci
         lib.cornetto_telo_mask.argtypes = [vp, cl, cl, vp, ci, vp, vp]
         lib.cornetto_telo_stats.restype = ci
-        lib.cornetto_telo_stats.argtypes = [vp, ci, cl, vp, ci, ci, ci, vp,
-                                            vp, vp, vp]
+        lib.cornetto_telo_stats.argtypes = [vp, cl, cl, ctypes.c_char_p, vp,
+                                            ci, ci, ci, ci, vp, vp, vp, vp]
     return lib
 
 
@@ -236,6 +236,33 @@ def telo_run_stats_ref(codes: torch.Tensor, motif_codes,
     return n, longest, terminal
 
 
+MOTIF_BY_VALUE = 64         # motif codes the run-stats kernel takes by value
+
+
+def _stats_launch(codes, motif, min_run_bases: int, route: int, n, longest,
+                  terminal):
+    """Launch the run-stats kernel into the given outputs: route 0 picks the
+    bitset kernel for rows of up to 4,096 bases and motifs of up to 64
+    codes and the row walk otherwise; route 1 (chip_smoke.py's timing
+    of the first design) takes the row walk at any length.  A motif of up to 64
+    codes is a kernel argument; a longer one is copied to the card first."""
+    B, L = codes.shape
+    k = len(motif)
+    dev = codes.device
+    lib = _lib()
+    with torch.cuda.device(dev):
+        mt = _motif_on(motif, dev) if k > MOTIF_BY_VALUE else None
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cornetto_telo_stats(
+            codes.data_ptr(), B, L, bytes(motif),
+            None if mt is None else mt.data_ptr(), k,
+            _steps_for(L - k + 1, k), -(-min_run_bases // k), route,
+            n.data_ptr(), longest.data_ptr(), terminal.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("telomere stats kernel launch failed: CUDA error "
+                           "%d" % err)
+
+
 def telo_run_stats(codes: torch.Tensor, motif_codes,
                    min_run_bases: int = 24):
     """codes (B, L) uint8.  Returns (n_matches (B,) int32, longest tandem run
@@ -243,33 +270,23 @@ def telo_run_stats(codes: torch.Tensor, motif_codes,
     run at position 0 spans >= ceil(min_run_bases / k) copies), bit-equal
     to telo_run_stats_jax / telo_run_stats_pallas.
 
-    A CUDA input launches the kernel (one block per read) on the current
-    stream without synchronising and adds one to
-    ``telo_run_stats.launches``."""
+    A CUDA input is one kernel launch on the current stream, without
+    synchronising, and adds one to ``telo_run_stats.launches``: the bitset
+    kernel (a warp a read) for rows of up to 4,096 bases, the row walk
+    (a block a read) for longer rows (``_stats_launch``)."""
     motif = _check(codes, motif_codes)
     if codes.device.type == "cpu":
         return telo_run_stats_ref(codes, motif, min_run_bases)
-    B, L = codes.shape
+    B, _ = codes.shape
     if B >= 1 << 31:
         raise ValueError("at most 2^31-1 reads (got %d)" % B)
-    k = len(motif)
     dev = codes.device
     n = torch.empty(B, dtype=torch.int32, device=dev)
     longest = torch.empty(B, dtype=torch.int32, device=dev)
-    terminal = torch.empty(B, dtype=torch.uint8, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        mt = _motif_on(motif, dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cornetto_telo_stats(
-            codes.data_ptr(), B, L, mt.data_ptr(), k,
-            _steps_for(L - k + 1, k), -(-min_run_bases // k), n.data_ptr(),
-            longest.data_ptr(), terminal.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("telomere stats kernel launch failed: CUDA error "
-                           "%d" % err)
+    terminal = torch.empty(B, dtype=torch.bool, device=dev)
+    _stats_launch(codes, motif, min_run_bases, 0, n, longest, terminal)
     telo_run_stats.launches += 1
-    return n, longest, terminal.to(torch.bool)
+    return n, longest, terminal
 
 
 telo_run_stats.launches = 0

@@ -1,0 +1,427 @@
+"""Iterative chunk-by-chunk adaptive-sampling decisions (read-until): the
+PyTorch port's copy of cornetto_tpu/livefish/chunks.py.
+
+The reference protocol hands live decisions to readfish, whose operating
+model is: the sequencer surfaces each in-progress read as a growing series
+of ~1 s basecalled chunks per channel, and the controller answers every
+chunk with one of three actions (reference: docs/protocol.md:137-161 and
+the readfish TOML it configures):
+
+  - ``unblock``         — eject the read (it maps into the boring panel);
+  - ``stop_receiving``  — keep sequencing but stop streaming chunks
+                          (decision made: the read is wanted);
+  - ``proceed``         — no confident mapping yet, wait for more data.
+
+This module supplies that per-channel state machine on top of the batch
+decision engine (livefish.decide.SingleChipEngine): every tick gathers the
+accumulated prefixes of all channels with fresh data into ONE fixed-shape
+packed batch — one launch of the fused decision kernel per batch on a card
+(kernels.decide.decide_packed), however many channels fired — and
+host-side state is plain numpy per-channel arrays.  The engine's results
+are tensors on its device; each batch's (2, B) result is read back once,
+when the batch is resolved.
+"""
+
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from cornetto_tpu_torch.kernels.minimizer import encode_seq, pack_reads
+from cornetto_tpu_torch.livefish.decide import unpack_fused
+
+# actions
+PROCEED = 0
+UNBLOCK = 1
+STOP_RECEIVING = 2
+ACTION_NAMES = {PROCEED: "proceed", UNBLOCK: "unblock",
+                STOP_RECEIVING: "stop_receiving"}
+
+
+@dataclass
+class ChunkPolicy:
+    """readfish-equivalent control knobs."""
+    min_hits: int = 3           # confidence threshold (engine min_hits)
+    max_chunks: int = 4         # give up deciding after this many chunks
+    # what to do with a still-unmapped read at max_chunks: readfish's
+    # "no_map" conditions — proceed (leave it alone) or unblock
+    no_map_action: int = PROCEED
+
+
+@dataclass
+class ChunkEvent:
+    """One basecalled chunk from one channel."""
+    channel: int
+    read_id: str
+    seq: str                    # the NEW bases of this chunk only
+
+
+@dataclass
+class ChunkDecision:
+    channel: int
+    read_id: str
+    action: int
+    n_chunks: int               # chunks consumed to reach this decision
+    contig: int = -1
+    pos: int = -1
+    nhits: int = 0
+
+
+class ChunkDecisionEngine:
+    """Per-channel read-until state machine over a batch decision engine.
+
+    engine: SingleChipEngine (or any object with decide_packed(packed,
+    nmask, L) -> (decision, best, est, nhits), tensors or arrays).  batch
+    is the fixed device batch per tick (one kernel launch); channels beyond
+    it queue to the next tick.  max_len = chunk_len * policy.max_chunks
+    bounds the accumulated prefix re-decided each tick.
+    """
+
+    def __init__(self, engine, n_channels: int, chunk_len: int,
+                 policy: ChunkPolicy = ChunkPolicy(), batch: int = 512,
+                 pipeline_depth: int = 0):
+        self.engine = engine
+        self.policy = policy
+        self.chunk_len = chunk_len
+        self.batch = batch
+        self.max_len = chunk_len * policy.max_chunks
+        # pipeline_depth device batches stay in flight before the host
+        # blocks on a readback: kernel launches are asynchronous, so at
+        # depth >= 1 the host returns before the card has decided and
+        # decisions surface up to `depth` ticks later.  This hides decide
+        # latency when the host multiplexes other work between ticks
+        # (coverage folding, IO); in an offline replay it instead ADDS work
+        # (lagged channels keep re-deciding), so the default stays 0
+        # (decide synchronously every tick).
+        self.pipeline_depth = pipeline_depth
+        self._inflight: List[tuple] = []
+        C = self.n_channels = n_channels
+        self._buf = np.full((C, self.max_len), 4, dtype=np.uint8)
+        self._blen = np.zeros(C, dtype=np.int64)
+        self._chunks = np.zeros(C, dtype=np.int64)
+        self._read_id: List[str] = [""] * C
+        self._done = np.zeros(C, dtype=bool)   # decision already emitted
+
+    def _reset_channel(self, c: int, read_id: str) -> None:
+        self._buf[c] = 4
+        self._blen[c] = 0
+        self._chunks[c] = 0
+        self._read_id[c] = read_id
+        self._done[c] = False
+
+    def process(self, events: Sequence[ChunkEvent]) -> List[ChunkDecision]:
+        """Consume one tick's chunks, return decisions for every event
+        (channels whose read is already decided get their standing action
+        STOP_RECEIVING silently skipped — readfish stops receiving chunks
+        for them, so emitting nothing is the faithful behavior)."""
+        pending: List[int] = []
+        for ev in events:
+            c = ev.channel
+            if ev.read_id != self._read_id[c]:
+                self._reset_channel(c, ev.read_id)
+            if self._done[c]:
+                continue
+            codes = encode_seq(ev.seq)
+            n = int(self._blen[c])
+            take = min(len(codes), self.max_len - n)
+            if take > 0:
+                self._buf[c, n:n + take] = codes[:take]
+                self._blen[c] = n + take
+            self._chunks[c] += 1
+            pending.append(c)
+        for i in range(0, len(pending), self.batch):
+            self._submit(pending[i:i + self.batch])
+        out: List[ChunkDecision] = []
+        while len(self._inflight) > self.pipeline_depth:
+            out.extend(self._resolve(self._inflight.pop(0)))
+        return out
+
+    def drain(self) -> List[ChunkDecision]:
+        """Resolve every in-flight batch (end of run / idle tick)."""
+        out: List[ChunkDecision] = []
+        while self._inflight:
+            out.extend(self._resolve(self._inflight.pop(0)))
+        return out
+
+    def _submit(self, chans: List[int]) -> None:
+        rows = np.full((self.batch, self.max_len), 4, dtype=np.uint8)
+        rows[:len(chans)] = self._buf[chans]
+        packed, nmask = pack_reads(rows)
+        decide = getattr(self.engine, "decide_packed_fused",
+                         self.engine.decide_packed)
+        res = decide(packed, nmask, self.max_len)
+        # snapshot read ids + chunk counts: by the time this batch is
+        # harvested the channel may have moved on to a new read (decision
+        # arrives too late — dropped, as on a real sequencer) or received
+        # more chunks (decision still valid for its prefix)
+        self._inflight.append((list(chans), res,
+                               self._chunks[chans].copy(),
+                               [self._read_id[c] for c in chans]))
+
+    def _resolve(self, entry) -> List[ChunkDecision]:
+        chans, res, chunks_at, rids = entry
+        if isinstance(res, tuple):
+            d, best, est, nhits = (_host(x) for x in res[:4])
+        else:
+            # the fused (2, B) int32 result: one readback a batch
+            d, best, est, nhits = unpack_fused(_host(res))
+        out: List[ChunkDecision] = []
+        for i, c in enumerate(chans):
+            if c < 0:
+                continue   # scatter-only row (device engine duplicates)
+            if self._read_id[c] != rids[i] or self._done[c]:
+                continue   # read gone or already decided by an older batch
+            mapped = int(nhits[i]) >= self.policy.min_hits
+            if mapped:
+                action = UNBLOCK if d[i] == 0 else STOP_RECEIVING
+            elif chunks_at[i] >= self.policy.max_chunks:
+                action = self.policy.no_map_action
+                if action == PROCEED:
+                    # terminal proceed: stop re-deciding, let it run out
+                    self._done[c] = True
+            else:
+                action = PROCEED
+            if action != PROCEED:
+                self._done[c] = True
+            out.append(ChunkDecision(
+                channel=c, read_id=rids[i], action=action,
+                n_chunks=int(chunks_at[i]),
+                contig=int(best[i]) if mapped else -1,
+                pos=int(est[i]) if mapped else -1,
+                nhits=int(nhits[i])))
+        return out
+
+
+class DeviceChunkEngine(ChunkDecisionEngine):
+    """Read-until state machine with the accumulated per-channel prefixes
+    resident ON DEVICE.
+
+    ChunkDecisionEngine re-uploads every pending channel's FULL
+    accumulated prefix each tick: max_len/4 packed bytes per channel per
+    tick.  Here the device holds a (C+1, max_chunks, chunk_len/4)
+    2-bit-packed buffer and each tick ships only the NEW chunk (chunk_len/4
+    bytes + 28 B of indices/lengths per channel) — up to max_chunks x fewer
+    uploaded bytes — then the scatter, the prefix gather and the fused
+    decision kernel run on the card (decide.chunk_tick_core), with a single
+    (2, B) fused readback.
+
+    Decisions are bit-identical to ChunkDecisionEngine (the per-read
+    lengths mask reproduces the host padding exactly; tested).
+
+    Constraints (both are the sequencer operating model, asserted here):
+    - chunk_len % 4 == 0 and chunks arrive as fixed chunk_len-sized
+      pieces, except a read's final piece which may be shorter;
+    - chunks are pure ACGT (the basecaller norm): 2-bit chunk slots
+      cannot carry N.  Use ChunkDecisionEngine for N-containing input.
+    """
+
+    def __init__(self, engine, n_channels: int, chunk_len: int,
+                 policy: ChunkPolicy = ChunkPolicy(), batch: int = 512,
+                 pipeline_depth: int = 0):
+        super().__init__(engine, n_channels, chunk_len, policy, batch,
+                         pipeline_depth)
+        if chunk_len % 4:
+            raise ValueError("DeviceChunkEngine needs chunk_len %% 4 == 0 "
+                             "(got %d)" % chunk_len)
+        # replaces the host-side (C, max_len) code buffer entirely
+        self._buf = None
+        self._dev_buf = engine.init_chunk_state(n_channels, chunk_len,
+                                                policy.max_chunks)
+        self._pad_chan = n_channels          # sacrificial scatter row
+
+    def process(self, events: Sequence[ChunkEvent]) -> List[ChunkDecision]:
+        pending: List[int] = []
+        stage: List[tuple] = []              # (chan, slot, codes)
+        for ev in events:
+            c = ev.channel
+            if ev.read_id != self._read_id[c]:
+                self._reset_channel(c, ev.read_id)
+            if self._done[c]:
+                continue
+            codes = encode_seq(ev.seq)
+            if len(codes) > self.chunk_len:
+                raise ValueError(
+                    "chunk of %d bases on channel %d exceeds chunk_len=%d"
+                    % (len(codes), c, self.chunk_len))
+            if codes.size and codes.max() >= 4:
+                raise ValueError(
+                    "non-ACGT base in chunk on channel %d: the on-device "
+                    "2-bit state cannot carry N (use ChunkDecisionEngine)"
+                    % c)
+            n = int(self._blen[c])
+            if n % self.chunk_len:
+                raise ValueError(
+                    "channel %d got a new chunk after a short piece "
+                    "(accumulated %d bases): short chunks must be final"
+                    % (c, n))
+            take = min(len(codes), self.max_len - n)
+            if take > 0:
+                stage.append((c, n // self.chunk_len, codes[:take]))
+                self._blen[c] = n + take
+            else:
+                # buffer already full (pipelined channel awaiting its
+                # decision): nothing new to write, still re-decide
+                stage.append((self._pad_chan, 0, codes[:0]))
+            self._chunks[c] += 1
+            # carry the post-write length: reading self._blen at submit
+            # time would be stale if the same channel contributed two
+            # chunks in one call that split across batch boundaries
+            pending.append((c, int(self._blen[c])))
+        # One decision per channel per call, at its FINAL accumulated
+        # prefix — matching the host engine, whose _submit reads the
+        # accumulated buffer after the whole event loop (duplicate
+        # channels in one call are out of the sequencer's
+        # one-chunk-per-tick model but must not diverge): non-final
+        # duplicate entries keep their SCATTER but decide the pad row,
+        # and _resolve skips them (channel -1).  The final entry sits in
+        # the last batch, so every earlier scatter has landed by then.
+        last = {}
+        for i, (c, _ln) in enumerate(pending):
+            last[c] = i
+        pending = [(c if last[c] == i else -1, ln)
+                   for i, (c, ln) in enumerate(pending)]
+        for i in range(0, len(pending), self.batch):
+            self._submit_staged(pending[i:i + self.batch],
+                                stage[i:i + self.batch])
+        out: List[ChunkDecision] = []
+        while len(self._inflight) > self.pipeline_depth:
+            out.extend(self._resolve(self._inflight.pop(0)))
+        return out
+
+    def _reset_channel(self, c: int, read_id: str) -> None:
+        # no host buffer to clear: stale device chunk slots of the
+        # previous read are masked out by the per-read lengths
+        self._blen[c] = 0
+        self._chunks[c] = 0
+        self._read_id[c] = read_id
+        self._done[c] = False
+
+    def _submit_staged(self, pend: List[tuple], stage: List[tuple]) -> None:
+        B = self.batch
+        chans = [c for c, _ in pend]     # -1 = scatter-only (see process)
+        rows = np.zeros((B, self.chunk_len), dtype=np.uint8)
+        sc = np.full(B, self._pad_chan, dtype=np.int32)
+        slots = np.zeros(B, dtype=np.int32)
+        dc = np.full(B, self._pad_chan, dtype=np.int32)
+        lengths = np.zeros(B, dtype=np.int32)
+        for i, (c, slot, codes) in enumerate(stage):
+            rows[i, :len(codes)] = codes
+            sc[i] = c
+            slots[i] = slot
+        dc[:len(chans)] = [c if c >= 0 else self._pad_chan for c in chans]
+        lengths[:len(chans)] = [ln for _, ln in pend]
+        packed = (rows[:, 0::4] | (rows[:, 1::4] << 2)
+                  | (rows[:, 2::4] << 4) | (rows[:, 3::4] << 6))
+        self._dev_buf, fused = self.engine.decide_chunk_tick(
+            self._dev_buf, packed, sc, slots, dc, lengths)
+        self._inflight.append((list(chans), fused,
+                               np.array([self._chunks[c] if c >= 0 else 0
+                                         for c in chans]),
+                               [self._read_id[c] if c >= 0 else ""
+                                for c in chans]))
+
+
+# ---------------------------------------------------------------------------
+# read-until replay simulation (the test/benchmark harness the reference
+# lacks: it validates the control loop end-to-end without a sequencer)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ReplayMetrics:
+    n_reads: int = 0
+    n_unblocked: int = 0
+    n_stop_receiving: int = 0
+    n_no_decision: int = 0
+    bases_sequenced: int = 0            # with adaptive sampling
+    bases_without_as: int = 0           # counterfactual: full reads
+    mean_decision_chunks: float = 0.0
+    true_reject: int = 0                # unblocked AND truly panel-origin
+    false_reject: int = 0               # unblocked but NOT panel-origin
+
+
+def replay_read_until(engine: ChunkDecisionEngine,
+                      reads: Sequence[Tuple[str, str, bool]],
+                      unblock_overhead: int = 500) -> ReplayMetrics:
+    """Replay full reads through the chunk engine as a sequencer would.
+
+    reads: (read_id, full_sequence, is_panel_origin) triples.
+    Channels are recycled: a new read starts on a channel as soon as the
+    previous one finishes (unblocked early or sequenced to the end).
+    unblock_overhead: bases already sequenced by the time an unblock takes
+    effect (pore traversal + basecall latency), charged to every unblock.
+    """
+    C = engine.n_channels
+    chunk_len = engine.chunk_len
+    m = ReplayMetrics()
+    queue = deque(reads)
+    # (read_id, seq, panel, next_offset, decided_action)
+    active: Dict[int, list] = {}
+    decision_chunks: List[int] = []
+
+    def load(c: int):
+        if queue:
+            rid, seq, panel = queue.popleft()
+            active[c] = [rid, seq, panel, 0, None]
+        elif c in active:
+            del active[c]
+
+    for c in range(min(C, len(queue))):
+        load(c)
+    while active:
+        events = []
+        for c, st in list(active.items()):
+            rid, seq, panel, off, decided = st
+            if decided is None and off < len(seq):
+                events.append(ChunkEvent(c, rid,
+                                         seq[off:off + chunk_len]))
+            st[3] = off + chunk_len
+        decs = engine.process(events)
+        if not events:
+            # nothing new this tick: block on whatever is still in flight
+            # so lagging decisions can land before their reads run out
+            decs += engine.drain()
+        for dec in decs:
+            st = active.get(dec.channel)
+            if st is None or st[0] != dec.read_id:
+                continue
+            if dec.action == UNBLOCK:
+                m.n_unblocked += 1
+                if st[2]:
+                    m.true_reject += 1
+                else:
+                    m.false_reject += 1
+                sequenced = min(len(st[1]),
+                                dec.n_chunks * chunk_len + unblock_overhead)
+                m.bases_sequenced += sequenced
+                m.bases_without_as += len(st[1])
+                m.n_reads += 1
+                decision_chunks.append(dec.n_chunks)
+                load(dec.channel)
+            elif dec.action == STOP_RECEIVING:
+                m.n_stop_receiving += 1
+                st[4] = STOP_RECEIVING
+                decision_chunks.append(dec.n_chunks)
+        # finish reads that ran to their end (stop_receiving or undecided)
+        for c, st in list(active.items()):
+            rid, seq, panel, off, decided = st
+            if off >= len(seq):
+                if decided is None:
+                    m.n_no_decision += 1
+                m.bases_sequenced += len(seq)
+                m.bases_without_as += len(seq)
+                m.n_reads += 1
+                load(c)
+    engine.drain()   # late decisions have no read left to act on
+    if decision_chunks:
+        m.mean_decision_chunks = float(np.mean(decision_chunks))
+    return m
+
+
+def _host(x) -> np.ndarray:
+    """A result as a host numpy array: a tensor is read back (one copy from
+    the card), an array is taken as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)

@@ -1,8 +1,9 @@
 """`cornetto livefish` subcommands on the PyTorch engine: counterpart of
-cornetto_tpu/livefish/cli.py.  ``run`` and ``cov`` run the port's engine;
-``index`` (the native index build, written in the shared ``.npz`` format)
-and ``toml`` are copies of the JAX package's host commands; ``replay`` is
-not ported yet."""
+cornetto_tpu/livefish/cli.py.  ``run``, ``cov`` and ``replay`` (the
+read-until chunk engine, livefish.chunks, with ``--state host|device``) run
+the port's engine; ``index`` (the native index build, written in the shared
+``.npz`` format) and ``toml`` are copies of the JAX package's host
+commands."""
 
 import sys
 
@@ -103,6 +104,86 @@ def _cmd_run(argv) -> int:
     return 0
 
 
+def _cmd_replay(argv) -> int:
+    """read-until replay: feed full reads chunk-by-chunk through the
+    3-way (proceed/unblock/stop_receiving) per-channel state machine and
+    report adaptive-sampling savings — the control-loop validation the
+    reference delegates to a live sequencer (docs/protocol.md:137-161)."""
+    import getopt as _getopt
+    from cornetto_tpu_torch.io.bed import read_bed3
+    from cornetto_tpu_torch.io.fasta import read_fastx
+    from cornetto_tpu_torch.livefish.chunks import (ChunkDecisionEngine,
+                                                    ChunkPolicy,
+                                                    DeviceChunkEngine,
+                                                    replay_read_until)
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    from cornetto_tpu_torch.livefish.index import build_panel_mask
+    opts, args = _getopt.gnu_getopt(
+        argv, "c:n:m:p:b:u:d:",
+        ["chunk=", "channels=", "max-chunks=", "panel=", "batch=",
+         "unblock-overhead=", "pipeline-depth=", "state="])
+    chunk_len, channels, max_chunks, batch = 450, 512, 4, 512
+    panel_path = None
+    overhead = 500
+    pipeline_depth = 0
+    state = "host"
+    for flag, val in opts:
+        if flag in ("-c", "--chunk"):
+            chunk_len = int(val)
+        elif flag in ("-n", "--channels"):
+            channels = int(val)
+        elif flag in ("-m", "--max-chunks"):
+            max_chunks = int(val)
+        elif flag in ("-p", "--panel"):
+            panel_path = val
+        elif flag in ("-b", "--batch"):
+            batch = int(val)
+        elif flag in ("-u", "--unblock-overhead"):
+            overhead = int(val)
+        elif flag in ("-d", "--pipeline-depth"):
+            pipeline_depth = int(val)
+        elif flag == "--state":
+            state = val
+    if len(args) != 2:
+        sys.stderr.write("Usage: cornetto livefish replay <index> "
+                         "<reads.fastq> [-c chunk] [-n channels] "
+                         "[-m max_chunks] [-p panel.bed] "
+                         "[-u unblock_overhead] [-d pipeline_depth] "
+                         "[--state host|device]\n")
+        return 1
+    idx, panel, _ = _load_index_or_die(args[0])
+    if panel_path:
+        panel = build_panel_mask(idx, read_bed3(panel_path))
+    if panel is None:
+        log.die("no panel: build the index with -p or pass -p here")
+    if state not in ("host", "device"):
+        log.die("--state must be host or device (got %s)" % state)
+    # --state device keeps accumulated per-channel prefixes ON DEVICE and
+    # uploads only each tick's new chunk bytes (DeviceChunkEngine);
+    # requires pure-ACGT chunks and chunk_len % 4 == 0
+    cls = DeviceChunkEngine if state == "device" else ChunkDecisionEngine
+    if state == "device" and chunk_len % 4:
+        log.die("--state device needs chunk_len % 4 == 0")
+    eng = cls(SingleChipEngine(idx, panel),
+              n_channels=channels, chunk_len=chunk_len,
+              policy=ChunkPolicy(max_chunks=max_chunks),
+              batch=batch, pipeline_depth=pipeline_depth)
+    reads = [(rec.name, rec.seq, False) for rec in read_fastx(args[1])]
+    m = replay_read_until(eng, reads, unblock_overhead=overhead)
+    out = sys.stdout
+    out.write("reads\t%d\n" % m.n_reads)
+    out.write("unblocked\t%d\n" % m.n_unblocked)
+    out.write("stop_receiving\t%d\n" % m.n_stop_receiving)
+    out.write("no_decision\t%d\n" % m.n_no_decision)
+    out.write("mean_decision_chunks\t%.2f\n" % m.mean_decision_chunks)
+    out.write("bases_sequenced\t%d\n" % m.bases_sequenced)
+    out.write("bases_without_as\t%d\n" % m.bases_without_as)
+    if m.bases_without_as:
+        out.write("bases_saved_pct\t%.2f\n"
+                  % (100.0 * (1 - m.bases_sequenced / m.bases_without_as)))
+    return 0
+
+
 def _cmd_cov(argv) -> int:
     """Aligner-free coverage tracks: estimate cov-total / cov-mq20
     bedgraphs from livefish index hits while deciding, replacing the
@@ -178,7 +259,6 @@ def main(argv) -> int:
     if cmd == "toml":
         return _cmd_toml(rest)
     if cmd == "replay":
-        sys.stderr.write("livefish %s: %s\n" % (cmd, NOT_PORTED))
-        return 1
+        return _cmd_replay(rest)
     sys.stderr.write("Unknown livefish command %s\n" % cmd)
     return 1

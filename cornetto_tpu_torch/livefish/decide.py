@@ -17,6 +17,11 @@ live).
 The engine has no weights; its state is the index's bucket table, the
 panel mask and the static index parameters (``EngineState``).  Results stay
 on the engine's device; the streaming loop reads them back.
+
+The read-until chunk engine (livefish.chunks.DeviceChunkEngine) keeps each
+channel's packed chunks on the device (``init_chunk_state``); a tick
+(``decide_chunk_tick``, ``chunk_tick_core``) scatters the new chunks into
+that buffer, gathers the prefixes to decide and runs the same fused step.
 """
 
 from dataclasses import dataclass
@@ -153,3 +158,76 @@ class SingleChipEngine:
         return decision_core_packed_fused(
             st.btable, self._put(packed), self._put(nmask), st.panel,
             lengths=self._put(lengths), **self._kw(L))
+
+    def init_chunk_state(self, n_channels: int, chunk_len: int,
+                         max_chunks: int) -> torch.Tensor:
+        """Allocate the packed chunk buffer of livefish.chunks.
+        DeviceChunkEngine on the engine's device: (n_channels + 1,
+        max_chunks, chunk_len // 4) uint8, row n_channels the scatter
+        target of a batch's padding rows."""
+        if chunk_len % 4:
+            raise ValueError("chunk_len must pack to whole bytes (got %d)"
+                             % chunk_len)
+        return torch.zeros((n_channels + 1, max_chunks, chunk_len // 4),
+                           dtype=torch.uint8, device=self.device)
+
+    def decide_chunk_tick(self, buf, rows, s_chans, s_slots, d_chans,
+                          lengths):
+        """One tick of DeviceChunkEngine: upload this tick's new packed
+        chunk rows (B, chunk_len // 4) uint8 and the four (B,) index
+        vectors, scatter the rows into ``buf`` in place and decide the
+        accumulated prefixes of d_chans (chunk_tick_core).  Returns (buf,
+        fused (2, B) int32 on the device); decode fused with unpack_fused.
+
+        The upload is one copy: the rows, the three index vectors (int64)
+        and the lengths (int32) packed into one host buffer, pinned and
+        copied without blocking when the device is a card."""
+        B, nb = rows.shape
+        off = -(-B * nb // 8) * 8               # int64 vectors 8-aligned
+        host = np.empty(off + 28 * B, dtype=np.uint8)
+        host[:B * nb] = np.ascontiguousarray(rows, dtype=np.uint8).reshape(-1)
+        host[off:off + 24 * B].view(np.int64)[:] = np.concatenate(
+            [s_chans, s_slots, d_chans])
+        host[off + 24 * B:].view(np.int32)[:] = lengths
+        t = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        idx = t[off:off + 24 * B].view(torch.int64).view(3, B)
+        st = self.state
+        return chunk_tick_core(
+            buf, st.btable, t[:B * nb].view(B, nb), idx[0], idx[1], idx[2],
+            t[off + 24 * B:].view(torch.int32), st.panel,
+            **self._kw(buf.shape[1] * buf.shape[2] * 4))
+
+
+def chunk_tick_core(buf, btable, rows, s_chans, s_slots, d_chans, lengths,
+                    panel_mask, **kw):
+    """One read-until tick with the accumulated per-channel chunk state on
+    the device (livefish.chunks.DeviceChunkEngine): the counterpart of
+    cornetto_tpu/livefish/decide.py::chunk_tick_core.
+
+    buf: (C+1, max_chunks, chunk_len//4) uint8, 2-bit packed chunk slots
+    per channel, updated IN PLACE (the JAX program's ``.at[].set`` on a
+    donated buffer); row C is the scatter target of pad rows and of
+    channels with nothing new.  rows (B, chunk_len//4) uint8 and s_chans /
+    s_slots (B,): this tick's new chunk bytes and where they land.  d_chans
+    / lengths (B,): the channels to decide and their accumulated read
+    lengths (int32), kept apart from the scatter targets because a
+    pipelined channel can need a re-decision with no new chunk to write.
+
+    Pad rows scatter many duplicates into row C, and PyTorch does not
+    define which write wins for duplicate indices on a card.  That is
+    harmless only because row C's decisions are dropped
+    (livefish.chunks.ChunkDecisionEngine._resolve skips channel -1): a real
+    channel lands in one (channel, slot) at most once a tick.
+
+    Then the channels' prefixes are gathered into (B, max_chunks *
+    chunk_len // 4) packed reads and decided by one call of the fused
+    decision step (kernels.decide.decide_packed, fused=True: one kernel
+    launch on a card); ``kw`` carries L = max_chunks * chunk_len and the
+    index parameters.  An L the kernel cannot take raises there.  Returns
+    (buf, fused (2, B) int32)."""
+    buf[s_chans, s_slots] = rows
+    g = buf.index_select(0, d_chans).reshape(d_chans.shape[0], -1)
+    return buf, decision_core_packed_fused(btable, g, None, panel_mask,
+                                           lengths=lengths, **kw)

@@ -499,3 +499,154 @@ def test_telo_mask_kernel_unaligned_view(cuda_device, offset):
         assert view.data_ptr() % 16 == offset % 16 and view.is_contiguous()
         assert _check_mask(view.reshape(1, -1), motif) > 0
         _check_mask(view.reshape(7, 4999), motif)
+
+
+# ------------------------------------------------------- telomere run stats
+
+def _runs_across(rng, B, L, motif):
+    """Codes 0-4 where every row holds stride-k runs placed to cross the
+    bitset's 32-position words and its 32-lane groups (1,024 positions): a
+    run ending on each boundary, one starting on it and one spanning it,
+    a run at position 0 and one ending at the row's last start."""
+    codes = rng.integers(0, 5, size=(B, L)).astype(np.uint8)
+    m = np.array(motif, np.uint8)
+    k = len(m)
+    if L < k:
+        return codes
+    for r in range(B):
+        c = int(rng.integers(1, max(2, L // k // 2)))
+        for edge in (32, 64, 512, 1024):
+            if edge >= L:
+                break
+            s = [edge - c * k, edge, edge - (c * k) // 2][r % 3]
+            s = max(0, min(s, L - c * k))
+            codes[r, s:s + c * k] = np.tile(m, c)
+        codes[r, :k * min(c, L // k)] = np.tile(m, min(c, L // k))
+        codes[r, L - k:] = m
+    return codes
+
+
+@pytest.mark.parametrize("motif", ["TTAGGG", "CCCTAA", "AAAAAA", "k1", "k16",
+                                   "k17", "k64", "k65"])
+@pytest.mark.parametrize("B,L", [(64, 31), (64, 32), (64, 33), (64, 63),
+                                 (64, 64), (64, 65), (257, 450), (32, 1024),
+                                 (32, 1025), (8, 4096), (8, 4097), (3, 5)])
+def test_telo_run_stats_kernel_word_and_lane_boundaries(cuda_device, B, L,
+                                                        motif):
+    """Both routes against the plain version: the bitset (rows of up to
+    4,096 bases, motifs of up to 64 codes) and the row walk (longer rows,
+    and motifs past 64 codes, read from device memory), on runs that cross
+    a word or a lane."""
+    mt = CCCTAA if motif == "CCCTAA" else _motif(motif)
+    rng = np.random.default_rng([B, L, len(mt), 5])
+    codes = torch.from_numpy(_runs_across(rng, B, L, mt)).to(cuda_device)
+    for mrb in (24, 12, 0):
+        want = telo_run_stats_ref(codes, mt, mrb)
+        before = telo_run_stats.launches
+        got = telo_run_stats(codes, mt, mrb)
+        torch.cuda.synchronize()
+        assert telo_run_stats.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(want[0].sum()) > 0 or L < len(mt)
+
+
+@pytest.mark.parametrize("B,L", [(4096, 450), (4096, 1800), (8, 100_003)])
+def test_telo_run_stats_one_launch_no_upload(cuda_device, monkeypatch, B, L):
+    """A call is one device kernel: no motif upload (a motif of up to 64
+    codes is a kernel argument), no cast of the terminal flags, and only
+    its three outputs allocated."""
+    from torch.profiler import ProfilerActivity, profile
+    from cornetto_tpu_torch.kernels import telo
+
+    def no_upload(*_a):
+        raise AssertionError("the motif was uploaded")
+    monkeypatch.setattr(telo, "_motif_on", no_upload)
+    rng = np.random.default_rng([B, L, 9])
+    codes = torch.from_numpy(_codes(rng, B, L)).to(cuda_device)
+    telo_run_stats(codes, TTAGGG)               # build and load first
+    torch.cuda.synchronize()
+    # the first profiler session of a process may start its device tracing
+    # after the call (it once saw no device event): a first session primes
+    # it
+    with profile(activities=[ProfilerActivity.CUDA]):
+        telo_run_stats(codes, TTAGGG)
+        torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = telo_run_stats(codes, TTAGGG)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == \
+        allocs + 3
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1 and "stats" in device[0], device
+    for g, w in zip(got, telo_run_stats_ref(codes, TTAGGG)):
+        assert torch.equal(g, w)
+
+
+# ------------------------------------------------------- read-until ticks
+
+def _replay_reads(codes, n, seed):
+    """n reads of 600-2,400 bases of the draft's contigs, ACGT only."""
+    rng = np.random.default_rng([seed, 19])
+    out = []
+    for i in range(n):
+        c = codes[int(rng.integers(0, len(codes)))]
+        ln = int(rng.integers(600, 2401))
+        s = int(rng.integers(0, max(len(c) - ln, 0) + 1))
+        out.append(("r%d" % i, "".join(ACGT[c[s:s + ln]]), False))
+    return out
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("case", [DECIDE_CASES[0], DECIDE_CASES[7]])
+def test_device_chunk_ticks_match_the_cpu(cuda_device, case, depth):
+    """DeviceChunkEngine on the card (scatter, gather and the fused kernel
+    a tick, one launch a batch) against ChunkDecisionEngine on the CPU:
+    the same replay metrics and decisions."""
+    from cornetto_tpu_torch.livefish import chunks
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    idx, panel, codes = _decide_index(case, 448)
+    reads = _replay_reads(codes, 60, case[0])
+    got = {}
+    for name, cls, dev in (("card", chunks.DeviceChunkEngine, cuda_device),
+                           ("cpu", chunks.ChunkDecisionEngine, "cpu")):
+        eng = SingleChipEngine(idx, panel, device=dev)
+        ce = cls(eng, n_channels=16, chunk_len=448, batch=16,
+                 policy=chunks.ChunkPolicy(max_chunks=4),
+                 pipeline_depth=depth)
+        decs, ticks = [], [0]
+        process = ce.process
+
+        def counted(events):
+            ticks[0] += bool(events)
+            out = process(events)
+            decs.extend(out)
+            return out
+        ce.process = counted
+        before = decide_packed.launches
+        m = chunks.replay_read_until(ce, reads, unblock_overhead=100)
+        torch.cuda.synchronize()
+        got[name] = (vars(m), sorted(
+            (d.read_id, d.action, d.n_chunks, d.contig, d.pos, d.nhits)
+            for d in decs))
+        if name == "card":
+            assert decide_packed.launches - before == ticks[0] > 0
+    assert got["card"] == got["cpu"]
+    assert got["card"][0]["n_reads"] == 60
+
+
+def test_device_chunk_tick_surfaces_a_length_the_kernel_refuses(cuda_device):
+    """L = max_chunks * chunk_len past what the fused kernel's shared
+    memory holds (240,000 bases: 348 KB a read's group, past the 227 KB a
+    block may have) raises from the kernel's launch; nothing clamps
+    it."""
+    from cornetto_tpu_torch.livefish import chunks
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    idx, panel, _ = _decide_index(DECIDE_CASES[0], 450)
+    eng = SingleChipEngine(idx, panel, device=cuda_device)
+    ce = chunks.DeviceChunkEngine(eng, n_channels=2, chunk_len=60_000,
+                                  batch=2)
+    with pytest.raises(RuntimeError, match="decide kernel launch failed"):
+        ce.process([chunks.ChunkEvent(0, "r0", "ACGT" * 15_000)])

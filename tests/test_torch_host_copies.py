@@ -3,7 +3,9 @@ originals, on seeded inputs and on test_data: the index build and the
 shared ``.npz`` index format (an index built by either package loads in
 the other), the read packing, the FASTA / BED / bedgraph / BAM readers, the
 SDUST chunk plan and reassembly, the native SDUST DP, the telomere walks,
-the window statistics and the host tools.  Integers and bytes throughout;
+the window statistics, the host tools and the read-until chunk engines'
+state machines and replay (over a numpy stub engine).  Integers and bytes
+throughout;
 tolerance: exact equality."""
 
 import io
@@ -23,6 +25,7 @@ from cornetto_tpu.kernels.pallas_telo import (_steps_for as jax_steps_for,
 from cornetto_tpu.kernels.sdust_core import _NT4 as JAX_NT4
 from cornetto_tpu.kernels.window_sum import (n_windows as jax_n_windows,
                                              window_stats_numpy as jax_wsn)
+from cornetto_tpu.livefish import chunks as jax_chunks
 from cornetto_tpu.livefish import index as jax_index
 from cornetto_tpu.livefish.decide import unpack_fused as jax_unpack_fused
 from cornetto_tpu.native.sdust import sdust as jax_native_sdust
@@ -37,7 +40,7 @@ from cornetto_tpu_torch.kernels.sdust_core import _NT4
 from cornetto_tpu_torch.kernels.telo import _steps_for, scan_runs_from_mask
 from cornetto_tpu_torch.kernels.window_sum import n_windows, \
     window_stats_numpy
-from cornetto_tpu_torch.livefish import index
+from cornetto_tpu_torch.livefish import chunks, index
 from cornetto_tpu_torch.livefish.decide import unpack_fused
 from cornetto_tpu_torch.native.sdust import sdust as native_sdust
 from cornetto_tpu_torch.tools import telobreaks, telowin
@@ -270,3 +273,68 @@ def test_telowin_and_telobreaks_equal(gold):
     telobreaks.run(*paths, out=a)
     jax_telobreaks.run(*paths, out=b)
     assert a.getvalue() == b.getvalue()
+
+
+class _StubEngine:
+    """A numpy decision step for the chunk engines' host logic: decisions
+    from a hash of each row's packed bytes (up to its length in the device
+    form), so both packages' state machines see the same results."""
+
+    @staticmethod
+    def _fused(rows, lengths):
+        h = np.zeros(rows.shape[0], dtype=np.int64)
+        for i, r in enumerate(rows):
+            n = r.shape[0] if lengths is None else int(lengths[i]) // 4
+            h[i] = (int(r[:n].astype(np.int64).sum()) * 2654435761 + n) \
+                % 1000003
+        w0 = ((h % 3 == 0) << 30) | ((h % 7) << 16) | (h % 5)
+        return np.stack([w0, h % 10007]).astype(np.int32)
+
+    def decide_packed_fused(self, packed, nmask, L, lengths=None):
+        return self._fused(np.asarray(packed), lengths)
+
+    decide_packed = decide_packed_fused      # read (not called) by _submit
+
+    def init_chunk_state(self, n_channels, chunk_len, max_chunks):
+        return np.zeros((n_channels + 1, max_chunks, chunk_len // 4),
+                        dtype=np.uint8)
+
+    def decide_chunk_tick(self, buf, rows, s_chans, s_slots, d_chans,
+                          lengths):
+        buf[s_chans, s_slots] = rows
+        return buf, self._fused(buf[d_chans].reshape(len(d_chans), -1),
+                                lengths)
+
+
+@pytest.mark.parametrize("device", [False, True])
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("no_map", [0, 1])
+def test_chunk_engines_and_replay_equal(device, depth, no_map):
+    """Both packages' ChunkDecisionEngine / DeviceChunkEngine through
+    replay_read_until over the same reads (short final chunks, channels
+    recycled, three batches a tick): the same decisions and metrics."""
+    rng = np.random.default_rng([depth, no_map, device])
+    reads = [("r%d" % i, "".join(ACGT[rng.integers(0, 4, int(n))]),
+              bool(i % 2)) for i, n in enumerate(rng.integers(100, 2000, 40))]
+    out = {}
+    for name, mod in (("jax", jax_chunks), ("port", chunks)):
+        cls = mod.DeviceChunkEngine if device else mod.ChunkDecisionEngine
+        ce = cls(_StubEngine(), n_channels=8, chunk_len=200, batch=3,
+                 policy=mod.ChunkPolicy(max_chunks=4, no_map_action=no_map,
+                                        min_hits=2),
+                 pipeline_depth=depth)
+        decs = []
+        process = ce.process
+
+        def logged(events, process=process, decs=decs):
+            got = process(events)
+            decs.extend((d.channel, d.read_id, d.action, d.n_chunks,
+                         d.contig, d.pos, d.nhits) for d in got)
+            return got
+        ce.process = logged
+        m = mod.replay_read_until(ce, reads, unblock_overhead=100)
+        out[name] = (vars(m), decs)
+    assert out["port"] == out["jax"]
+    assert out["port"][0]["n_reads"] == 40 and len(out["port"][1]) > 40
+    assert chunks.ACTION_NAMES == jax_chunks.ACTION_NAMES
+    assert vars(chunks.ChunkPolicy()) == vars(jax_chunks.ChunkPolicy())

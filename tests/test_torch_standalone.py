@@ -1,5 +1,6 @@
 """The port stands alone: no source file of ``cornetto_tpu_torch`` (nor
-``chip_smoke.py``, ``bench_decide.py`` or ``bench_telo_mask.py``, nor the
+``chip_smoke.py``, ``bench_decide.py``, ``bench_telo_mask.py`` or
+``bench_telo_stats.py``, nor the
 card tests of tests/test_torch_cuda_kernels.py and their cases in
 tests/_decide_cases.py, which run where JAX is not installed) imports the
 JAX package, and the
@@ -19,7 +20,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "cornetto_tpu_torch").rglob("*.py")) + \
-    ["bench_decide.py", "bench_telo_mask.py", "chip_smoke.py",
+    ["bench_decide.py", "bench_telo_mask.py", "bench_telo_stats.py",
+     "chip_smoke.py",
      "tests/_decide_cases.py",
      "tests/test_torch_cuda_kernels.py"]
 

@@ -153,7 +153,7 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch, capsys):
     assert resolve_device() == torch.device("cpu")
 
 
-@pytest.mark.parametrize("argv", [["livefish", "replay", "i", "r"],
+@pytest.mark.parametrize("argv", [["bigenough", "x.fa"],
                                   ["telostats", "x.fa"],
                                   ["recreate-panel", "x.fa"],
                                   ["telocontigs", "x.fa"]])

@@ -112,6 +112,40 @@ def test_stats_terminal_only_at_position_0():
     assert lng.tolist() == [10, 10] and term.tolist() == [False, True]
 
 
+def _runs_across(rng, B, L, motif):
+    """Codes 0-4 with stride-k runs placed about the CUDA bitset's
+    32-position words and 32-lane groups (1,024 positions): ending on a
+    boundary, starting on it or spanning it, row by row; every row also
+    starts with a run and ends with a match."""
+    codes = rng.integers(0, 5, size=(B, L)).astype(np.uint8)
+    m = np.array(motif, np.uint8)
+    k = len(m)
+    for r in range(B):
+        c = int(rng.integers(1, max(2, L // k // 2)))
+        for edge in (32, 64, 1024):
+            if edge >= L:
+                break
+            s = [edge - c * k, edge, edge - (c * k) // 2][r % 3]
+            s = max(0, min(s, L - c * k))
+            codes[r, s:s + c * k] = np.tile(m, c)
+        codes[r, :k * min(c, L // k)] = np.tile(m, min(c, L // k))
+        codes[r, L - k:] = m
+    return codes
+
+
+@pytest.mark.parametrize("motif", [TTAGGG, CCCTAA])
+@pytest.mark.parametrize("L", [31, 32, 33, 63, 64, 65, 1023, 1024, 1025])
+def test_stats_word_and_lane_boundaries(L, motif):
+    """Runs that cross a 32-position word or a 32-lane group (1,024
+    positions) of the CUDA bitset, and lengths about both, against the JAX
+    functions."""
+    rng = np.random.default_rng([L, len(motif), motif[0]])
+    codes = _runs_across(rng, 9, L, motif)
+    for min_run_bases in (24, 0):
+        n, _, _ = _assert_stats(codes, motif, min_run_bases)
+    assert int(n.sum()) > 0
+
+
 @pytest.mark.parametrize("L", [1, 3, 5])
 def test_stats_and_mask_shorter_than_motif(L):
     codes = np.full((3, L), 3, dtype=np.uint8)
