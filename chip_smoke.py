@@ -7,7 +7,7 @@ Needs one NVIDIA GPU with the CUDA toolkit (nvcc).  Run from the root of a
 checkout.  It:
 
 1. prints the card, its power limit and the toolchain;
-2. builds the five kernel sources of cornetto_tpu_torch/csrc;
+2. builds the six kernel sources of cornetto_tpu_torch/csrc;
 3. holds the extraction kernel bit-equal to its plain PyTorch version on
    the card in all three validity variants, and times both; the fused
    decision kernel (extraction, lookup, votes and policy in one launch)
@@ -23,8 +23,9 @@ checkout.  It:
 4. builds a seeded synthetic draft at human scale (GRCh38's chromosome
    lengths, 3.09 Gbp in 87 contigs, with 10,000 copies of one 1,500-base
    repeat element planted in it), its minimizer index (the port's host
-   index build) and a panel of half its 1 Mb blocks, under build/smoke/
-   (reused on a rerun with the same seed), and uploads the index;
+   index build; also hash-sharded in two, for phase 16) and a panel of
+   half its 1 Mb blocks, under build/smoke/ (reused on a rerun with the
+   same seed), and uploads the index;
 5. runs 64 full batches of 4096 sampled 450-base reads plus a short tail
    through `cornetto_tpu_torch.cli livefish run`, checking one row per read
    and one fused-kernel launch per batch (no standalone extraction); it then runs a second draft small
@@ -103,10 +104,21 @@ checkout.  It:
    card's host state byte-equal to a CORNETTO_FORCE_CPU=1 run on the first
    256 reads; then one device tick at 512 and 3000 channels (scatter,
    gather, fused kernel) held equal to the plain step and timed by graph
-   replay, and its device operations from torch.profiler.
+   replay, and its device operations from torch.profiler;
+16. the multi-device runtime (cornetto_tpu_torch/dist, make_sharded_engine)
+   on the one card: an NCCL process group of one rank deciding phase 5's
+   65 batches at (dp, ep) = (1, 1), bit-equal to SingleChipEngine, with
+   one launch of the extraction, votes and policy kernels a batch; two
+   gloo processes sharing the card (this script with --dist-rank), at
+   (1, 2) on the 2-shard index, held to the plain looped-shard oracle and
+   compared with the 1-shard engine, and at (2, 1), held to
+   SingleChipEngine, plus an sp scan of chr1's length held to the
+   single-device window stats; the votes and policy kernels against their
+   plain versions at C = 1, 87 and past the shared-memory limit, timed by
+   graph replay; the sharded step's per-stage split from CUDA events.
 
-Phase 2 builds the five kernel sources in parallel; phases 3 and 11 hold
-each kernel bit-equal to its plain PyTorch version on the card.  Imports
+Phase 2 builds the six kernel sources in parallel; phases 3, 11 and 16
+hold each kernel bit-equal to its plain PyTorch version on the card.  Imports
 nothing of the JAX package: the index, the parsers and the host DP are the
 port's own.  Prints the numbers, each phase's seconds, a {"kernels": [...]}
 line (each kernel's launches on its main path, error, time, plain time,
@@ -128,7 +140,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, READ_LEN, K, W = 4096, 450, 15, 10
 FULL_BATCHES, TAIL = 64, 1000
-KERNELS = ("extract_minima", "decide", "window_sum", "sdust", "telo")
+KERNELS = ("extract_minima", "decide", "votes", "window_sum", "sdust",
+           "telo")
 WIN, INC = 2500, 50                      # boringbits' default window
 
 # the least time the card could take for a kernel's work (bound_ms): its
@@ -253,8 +266,9 @@ def panel_rows(seed: int, contigs, block: int):
     return rows
 
 
-def build_or_load_index(path: str, contigs, codes, rows):
-    """Build (or reuse) the index + panel checkpoint at path(.npz)."""
+def build_or_load_index(path: str, contigs, codes, rows, n_shards: int = 1):
+    """Build (or reuse) the index + panel checkpoint at path(.npz), its
+    table hash-sharded n_shards ways."""
     import numpy as np
     from cornetto_tpu_torch.dist.checkpoint import save_index
     from cornetto_tpu_torch.livefish.index import (build_index,
@@ -267,14 +281,14 @@ def build_or_load_index(path: str, contigs, codes, rows):
     t0 = time.perf_counter()
     idx = build_index(((name, ascii_[c].tobytes().decode("ascii"))
                        for (name, _), c in zip(contigs, codes)),
-                      n_shards=1, k=K, w=W, keep_tables=False)
+                      n_shards=n_shards, k=K, w=W, keep_tables=False)
     panel = build_panel_mask(idx, rows)
     save_index(path, idx, panel_mask=panel)
     open(stamp, "w").close()
     dt = time.perf_counter() - t0
-    log("index: built %d contigs, %.3f Gbp, %d buckets x %d slots, dropped "
-        "%.4f%%, in %.1f s -> %s.npz"
-        % (len(contigs), sum(n for _, n in contigs) / 1e9,
+    log("index: built %d contigs, %.3f Gbp, %d shards x %d buckets x %d "
+        "slots, dropped %.4f%%, in %.1f s -> %s.npz"
+        % (len(contigs), sum(n for _, n in contigs) / 1e9, n_shards,
            idx.btable.shape[1], idx.bucket_slots, 100 * idx.dropped_frac,
            dt, path))
 
@@ -2222,9 +2236,456 @@ def phase_replay(seed: int, work: str, idx_path: str, fq: str):
     return res
 
 
+# ---------------------------------------------------------------- dist
+
+# the two-process layouts of phase 16 decide this many of phase 5's full
+# batches; the sp scan is chr1's length at boringbits' default window
+DIST_BATCHES = 4
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 600
+
+
+def stream_args(pb):
+    """(packed, nmask, lengths) of a parsed batch's rows in the form
+    `livefish run` passes them (livefish/stream.py): the N bitmap with the
+    lengths folded in when the batch has an N, else the lengths unless
+    every read is full."""
+    import numpy as np
+    n = pb.count
+    if pb.nmask is None:
+        lens = pb.lengths[:n]
+        return pb.packed[:n], None, None if (lens == READ_LEN).all() \
+            else lens
+    nm = pb.nmask[:n].copy()
+    pos = np.arange(nm.shape[1] * 8, dtype=np.int32)
+    pad = pos[None, :] >= pb.lengths[:n, None]
+    nm |= np.packbits(pad, axis=1, bitorder="little")[:, :nm.shape[1]]
+    return pb.packed[:n], nm, None
+
+
+def chr1_depth(seed: int):
+    """A seeded depth track of chr1's length (int32, 0..65535)."""
+    import numpy as np
+    return np.random.default_rng([seed, 21]).integers(
+        0, 65536, size=GRCH38[0], dtype=np.int32)
+
+
+def split_ms(engine, args, n: int = 20):
+    """The sharded step on this rank's uploaded rows, n times: (ms a step,
+    {stage: ms}) from CUDA events recorded as each stage is issued
+    (ShardedEngine.step's mark)."""
+    import torch
+    stages = {}
+    evs = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        evs.append((name, e))
+    for _ in range(3):
+        engine.step(*args, READ_LEN)
+    torch.cuda.synchronize()
+    for _ in range(n):
+        mark("start")
+        engine.step(*args, READ_LEN, mark=mark)
+    torch.cuda.synchronize()
+    for (_, a), (name, b) in zip(evs, evs[1:]):
+        if name != "start":
+            stages[name] = stages.get(name, 0.0) + a.elapsed_time(b) / n
+    return sum(stages.values()), stages
+
+
+def votes_work(h, v, btable, two_choice, ep, shard, C):
+    """{"bytes", "ops"} of one shard's votes (see bound): the gathered
+    hashes and flags, one bucket row a probe of each valid window the
+    shard owns, the dense planes written; 8 ops a slot compared."""
+    owned = int((v & ((h & (ep - 1)) == shard)).sum())
+    probes = 2 if two_choice else 1
+    K = btable.shape[1] // 2
+    return dict(bytes=h.numel() * 5 + owned * probes * K * 8
+                + 9 * h.shape[0] * C * 4,
+                ops=owned * probes * K * 8, owned=owned)
+
+
+def policy_work(b, C):
+    """{"bytes", "ops"} of the policy on (9, b, C) planes: the votes plane,
+    the best contig's other eight words and panel byte a read, the outputs;
+    a compare a vote."""
+    return dict(bytes=b * C * 4 + b * (8 * 4 + 1 + 21), ops=b * C)
+
+
+def phase_dist_kernels(seed, idx2_path, batch):
+    """The votes and policy kernels against their plain versions on the
+    human-scale 2-shard index (ep = 2, shards 0 and 1) at C = 1, 87 and one
+    past the shared-memory limit; timed by CUDA-graph replay at the (1, 2)
+    layout's shapes.  Returns (worst error, votes timing, policy timing)."""
+    import torch
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    from cornetto_tpu_torch.kernels.extract import extract_minima
+    from cornetto_tpu_torch.kernels.votes import (policy_from_stats,
+                                                  policy_from_stats_ref,
+                                                  shared_limit,
+                                                  sharded_votes,
+                                                  sharded_votes_ref)
+    dev = torch.device("cuda")
+    idx, panel, _ = load_index(idx2_path)
+    bts = [torch.from_numpy(idx.btable[s]).to(dev) for s in range(2)]
+    C0 = panel.shape[0]
+    pk, nm, ln = (None if a is None else torch.from_numpy(a).to(dev)
+                  for a in batch)
+    h, v = extract_minima(pk, nm, READ_LEN, K, W, lengths=ln)
+    worst, tv, tp = 0, None, None
+    for C in (1, C0, shared_limit() + 1):
+        stats = 0
+        for s in range(2):
+            args = (h, v, bts[s], idx.bucket_shift, idx.two_choice, 2, s, C)
+            got = sharded_votes(*args, parts=2)
+            torch.cuda.synchronize()
+            want = sharded_votes_ref(*args, parts=2)
+            err = int((got.long() - want.long()).abs().max())
+            worst = max(worst, err, 0 if torch.equal(got, want) else 1)
+            stats = stats + got.transpose(0, 1).reshape(9, -1, C)
+            if C == C0 and s == 0:
+                tv = dict(votes_work(h, v, bts[s], idx.two_choice, 2, s, C),
+                          ms=graph_ms(lambda: sharded_votes(*args, parts=2)),
+                          plain_ms=cuda_ms(lambda: sharded_votes_ref(
+                              *args, parts=2), 5),
+                          library_ms=None)
+        pn = torch.zeros((C, panel.shape[1]), dtype=torch.bool, device=dev)
+        pn[:min(C, C0)] = torch.from_numpy(panel[:min(C, C0)]).to(dev)
+        outs = policy_from_stats(stats, pn, 3, 1000)
+        torch.cuda.synchronize()
+        for g, r in zip(outs, policy_from_stats_ref(stats, pn, 3, 1000)):
+            err = int((g.long() - r.long()).abs().max())
+            worst = max(worst, err, 0 if torch.equal(g, r) else 1)
+        if C == C0:
+            half = stats[:, :stats.shape[1] // 2].contiguous()
+            tp = dict(policy_work(half.shape[1], C),
+                      ms=graph_ms(lambda: policy_from_stats(half, pn, 3,
+                                                            1000)),
+                      plain_ms=cuda_ms(lambda: policy_from_stats_ref(
+                          half, pn, 3, 1000), 5),
+                      library_ms=None)
+        log("[16 dist] votes + policy kernels, ep = 2, shards 0 and 1, (%d, "
+            "%d) hashes, C = %d (%s): max_abs_err=%d so far"
+            % (h.shape[0], h.shape[1], C, "shared memory"
+               if C <= shared_limit() else "global atomics", worst))
+    del bts, idx
+    torch.cuda.empty_cache()
+    if worst:
+        fail("the votes or policy kernel disagrees with its plain version")
+    return worst, tv, tp
+
+
+def phase_dist(seed: int, work: str, idx_path: str, idx2_path: str,
+               fq: str, card: str):
+    """The multi-device runtime (cornetto_tpu_torch/dist, the sharded
+    engine) on the one card: NCCL at world size 1 over phase 5's batches,
+    bit-equal to SingleChipEngine; two gloo processes on the card at (1, 2)
+    on the 2-shard index (held to the plain looped-shard oracle) and (2, 1)
+    on the 1-shard index (held to SingleChipEngine), and an sp scan of
+    chr1's length held to the single-device window stats; the votes and
+    policy kernels alone.  Returns the kernel rows' timings and launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from cornetto_tpu_torch.dist import multihost
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    from cornetto_tpu_torch.dist.mesh import make_mesh
+    from cornetto_tpu_torch.kernels.decide import decide_packed
+    from cornetto_tpu_torch.kernels.extract import extract_minima
+    from cornetto_tpu_torch.kernels.votes import (policy_from_stats,
+                                                  sharded_votes)
+    from cornetto_tpu_torch.kernels.window_sum import window_stats
+    from cornetto_tpu_torch.livefish import decide as td
+    from cornetto_tpu_torch.native.fastq_pack import iter_packed_batches
+
+    # [a] NCCL, world size 1, (dp, ep) = (1, 1) on the 1-shard index
+    rdv = os.path.join(work, "rdv_nccl")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    t0 = time.perf_counter()
+    if not multihost.initialize(init_method="file://" + rdv, world_size=1,
+                                rank=0):
+        fail("multihost.initialize started no process group")
+    backend = dist.get_backend()
+    if backend != "nccl":
+        fail("the card's process group runs %s, not nccl" % backend)
+    idx, panel, _ = load_index(idx_path)
+    eng1 = td.SingleChipEngine(idx, panel, device="cuda")
+    engS = td.make_sharded_engine(make_mesh({"dp": 1, "ep": 1}), idx, panel)
+    del idx
+    batches = [stream_args(pb)
+               for pb in iter_packed_batches(fq, BATCH, READ_LEN)]
+    log("[16 dist] NCCL process group of 1 rank, mesh (1, 1), index and "
+        "engines up in %.1f s; %d batches" % (time.perf_counter() - t0,
+                                              len(batches)))
+    for fn in (extract_minima, sharded_votes, policy_from_stats,
+               decide_packed):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = [engS.decide_packed(pk, nm, READ_LEN, lengths=ln)
+            for pk, nm, ln in batches]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(extract=extract_minima.launches,
+                    votes=sharded_votes.launches,
+                    policy=policy_from_stats.launches,
+                    decide=decide_packed.launches)
+    n = len(batches)
+    if launches != dict(extract=n, votes=n, policy=n, decide=0):
+        fail("the sharded engine's launches over %d batches: %s"
+             % (n, launches))
+    single, bad = [], 0
+    for (pk, nm, ln), got in zip(batches, outs):
+        want = eng1.decide_packed(pk, nm, READ_LEN, lengths=ln)
+        bad += sum(not (g.dtype == w.dtype and torch.equal(g, w))
+                   for g, w in zip(got, want))
+        if len(single) < DIST_BATCHES:
+            single.append([w.cpu().numpy() for w in want])
+    log("[16 dist] NCCL (1, 1): %d batches (%d reads) in %.3f s, launches "
+        "%s; all six outputs bit-equal to SingleChipEngine.decide_packed: %s"
+        % (n, sum(len(b[0]) for b in batches), run_s, launches, bad == 0))
+    if bad:
+        fail("the sharded engine at (1, 1) differs from SingleChipEngine in "
+             "%d outputs" % bad)
+    full = [b for b in batches if len(b[0]) == BATCH][:DIST_BATCHES]
+    args = engS.upload(*full[0])
+    step_ms, split = split_ms(engS, args)
+    call_ms = cuda_ms(lambda: engS.decide_packed(*full[0][:2], READ_LEN,
+                                                 lengths=full[0][2]), 20)
+    one_ms = cuda_ms(lambda: eng1.decide_packed(*full[0][:2], READ_LEN,
+                                                lengths=full[0][2]), 20)
+    timing = {"(1, 1) nccl": dict(step_ms=step_ms, call_ms=call_ms,
+                                  split=split)}
+    log("[16 dist] NCCL (1, 1), per 4096-read batch: step %.4f ms = %s; a "
+        "decide_packed call (upload included) %.4f ms back to back; "
+        "SingleChipEngine.decide_packed (one launch) %.4f ms (%s)"
+        % (step_ms, " + ".join("%s %.4f" % kv for kv in split.items()),
+           call_ms, one_ms, card))
+    del eng1, engS, outs
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # [b] two gloo processes on the one card
+    np.savez(os.path.join(work, "dist_batches.npz"), **{
+        "%d/%s" % (i, k): a for i, b in enumerate(full)
+        for k, a in zip(("packed", "nmask", "lengths"), b) if a is not None})
+    rdv = os.path.join(work, "rdv_gloo")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--dist-rank", str(r), "--dist-work", work, "--dist-index",
+         idx_path, "--dist-index2", idx2_path], env=env, cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(DIST_RANKS)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=DIST_TIMEOUT_S)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        for line in text.splitlines():
+            log("[16 dist] rank %d: %s" % (r, line))
+        if p.returncode != 0:
+            fail("gloo rank %d exited %d" % (r, p.returncode))
+    res = [dict(np.load(os.path.join(work, "dist_r%d.npz" % r)))
+           for r in range(DIST_RANKS)]
+    log("[16 dist] two gloo processes on the card: %.1f s" % (
+        time.perf_counter() - t0))
+    bad = agree = rows = 0
+    for i in range(len(full)):
+        for r in range(DIST_RANKS):
+            for j in range(6):
+                ep2 = res[r]["ep2/%d/%d" % (i, j)]
+                oracle = res[0]["oracle/%d/%d" % (i, j)]
+                dp2 = res[r]["dp2/%d/%d" % (i, j)]
+                bad += not (ep2.dtype == oracle.dtype
+                            and np.array_equal(ep2, oracle))
+                bad += not (dp2.dtype == single[i][j].dtype
+                            and np.array_equal(dp2, single[i][j]))
+        same = np.ones(BATCH, dtype=bool)
+        for j in range(6):
+            same &= res[0]["ep2/%d/%d" % (i, j)] == single[i][j]
+        agree += int(same.sum())
+        rows += BATCH
+    log("[16 dist] gloo (1, 2) on the 2-shard index: all six outputs of both "
+        "ranks bit-equal to the plain looped-shard oracle on %d batches; "
+        "(2, 1) on the 1-shard index bit-equal to SingleChipEngine: %s; "
+        "(1, 2) rows whose six outputs equal the 1-shard engine's: %d of %d "
+        "(%.4f%%)" % (len(full), bad == 0, agree, rows, 100 * agree / rows))
+    if bad:
+        fail("the two-process layouts differ from their oracles in %d "
+             "outputs" % bad)
+    depth = chr1_depth(seed)
+    t0 = time.perf_counter()
+    st0, end0, m0, _ = window_stats(depth, depth, WIN, INC)
+    one_s = time.perf_counter() - t0
+    same = all(np.array_equal(res[r]["sp/" + k], a) for r in range(2)
+               for k, a in (("st", st0), ("end", end0), ("means", m0)))
+    log("[16 dist] sp scan, 2 ranks over gloo, chr1 (%d) W=%d S=%d: %d "
+        "windows equal to the single-device window_stats: %s; %.3f s a rank "
+        "(%.3f s single-device, two tracks)"
+        % (GRCH38[0], WIN, INC, len(m0), same, float(res[0]["sp/s"]),
+           one_s))
+    if not same:
+        fail("the sp scan differs from the single-device window stats")
+    for name in ("ep2", "dp2"):
+        split = {k.split("/")[-1]: float(res[0][k]) for k in res[0]
+                 if k.startswith("split/%s/" % name)}
+        timing["%s gloo" % name] = dict(
+            step_ms=sum(split.values()), call_ms=float(res[0]["call/" + name]),
+            split=split)
+        log("[16 dist] gloo %s, per 4096-read batch, rank 0: step %.4f ms = "
+            "%s; a decide_packed call (upload included) %.4f ms back to back "
+            "(two processes on one card; no gloo figure stands for NCCL; "
+            "%s)" % ("(1, 2)" if name == "ep2" else "(2, 1)",
+                     sum(split.values()),
+                     " + ".join("%s %.4f" % kv for kv in split.items()),
+                     float(res[0]["call/" + name]), card))
+    with open(os.path.join(work, "gloo_cuda_r0.json")) as f:
+        log("[16 dist] gloo asked to take CUDA tensors (the port's "
+            "collectives stage them through pinned host memory instead; "
+            "send/recv not asked): %s" % f.read())
+
+    # [c] the kernels alone
+    err, tv, tp = phase_dist_kernels(seed, idx2_path, full[0])
+    for name, t in (("votes", tv), ("policy", tp)):
+        b_ms, b_by = bound(t)
+        log("[16 dist] %s kernel at the (1, 2) layout's shapes: %.4f ms by "
+            "graph replay, bound %.4f ms (%s, %d bytes) = %.1f%% of it "
+            "reached, plain %.4f ms (%s)"
+            % (name, t["ms"], b_ms, b_by, t["bytes"], 100 * b_ms / t["ms"],
+               t["plain_ms"], card))
+    return dict(launches=launches, err=err, votes=tv, policy=tp,
+                timing=timing)
+
+
+def dist_worker(args):
+    """One of phase 16's two gloo ranks on the card (chip_smoke.py
+    --dist-rank R ...): the (1, 2) layout on the 2-shard index with rank
+    0 computing the plain looped-shard oracle, the (2, 1) layout on the
+    1-shard index, the sp scan of chr1's length, the step's split, and
+    which collectives gloo refuses on CUDA tensors; writes
+    <work>/dist_r<R>.npz and <work>/gloo_cuda_r<R>.json."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from cornetto_tpu_torch.dist import multihost
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    from cornetto_tpu_torch.dist.mesh import make_mesh
+    from cornetto_tpu_torch.dist.scan import sharded_window_stats
+    from cornetto_tpu_torch.kernels.decide import (_lookup_votes,
+                                                   _policy_from_stats)
+    from cornetto_tpu_torch.kernels.extract import extract_minima_ref
+    from cornetto_tpu_torch.livefish import decide as td
+    rank, work = args.dist_rank, args.dist_work
+    multihost.initialize(
+        init_method="file://" + os.path.join(work, "rdv_gloo"),
+        world_size=DIST_RANKS, rank=rank, backend="gloo",
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S - 60))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = np.load(os.path.join(work, "dist_batches.npz"))
+    batches = []
+    for i in range(DIST_BATCHES):
+        if "%d/packed" % i in data.files:
+            batches.append(tuple(
+                data["%d/%s" % (i, k)] if "%d/%s" % (i, k) in data.files
+                else None for k in ("packed", "nmask", "lengths")))
+    out = {}
+    for name, (dp, ep), path in (("ep2", (1, 2), args.dist_index2),
+                                 ("dp2", (2, 1), args.dist_index)):
+        mesh = make_mesh({"dp": dp, "ep": ep})
+        idx, panel, _ = load_index(path)
+        eng = td.make_sharded_engine(mesh, idx, panel)
+        for i, b in enumerate(batches):
+            for j, o in enumerate(eng.decide_packed(b[0], b[1], READ_LEN,
+                                                    lengths=b[2])):
+                out["%s/%d/%d" % (name, i, j)] = o.cpu().numpy()
+        _, split = split_ms(eng, eng.upload(*batches[0]), 10)
+        for k, ms in split.items():
+            out["split/%s/%s" % (name, k)] = ms
+        out["call/" + name] = cuda_ms(lambda: eng.decide_packed(
+            batches[0][0], batches[0][1], READ_LEN, lengths=batches[0][2]),
+            10, warmup=2)
+        if ep == 2 and rank == 0:
+            # the plain looped-shard oracle: every shard's owner-filtered
+            # plain lookup on the card, summed, then the plain policy
+            pn = torch.from_numpy(panel).to(dev)
+            for i, b in enumerate(batches):
+                pk, nm, ln = (None if a is None else torch.from_numpy(a).to(
+                    dev) for a in b)
+                h, v = extract_minima_ref(pk, nm, READ_LEN, K, W,
+                                          lengths=ln)
+                planes = 0
+                for s in range(ep):
+                    bt = torch.from_numpy(idx.btable[s]).to(dev)
+                    planes = planes + torch.stack(_lookup_votes(
+                        bt, idx.bucket_shift, h, v, pn.shape[0],
+                        idx.two_choice, owner=(ep, s)))
+                    del bt
+                for j, o in enumerate(_policy_from_stats(planes, pn, 3,
+                                                         1000)):
+                    out["oracle/%d/%d" % (i, j)] = o.cpu().numpy()
+        del eng, idx
+        torch.cuda.empty_cache()
+        dist.barrier()
+    depth = chr1_depth(args.seed)
+    t0 = time.perf_counter()
+    res = sharded_window_stats(make_mesh({"sp": DIST_RANKS}), depth,
+                               len(depth), WIN, INC)
+    out["sp/s"] = time.perf_counter() - t0
+    for k, a in zip(("st", "end", "means"), res):
+        out["sp/" + k] = a
+    np.savez(os.path.join(work, "dist_r%d.npz" % rank), **out)
+    # which collectives gloo takes CUDA tensors for, and with what result,
+    # asked of gloo itself once the work is done (dist/collectives.py
+    # never passes it one)
+    x = torch.full((4,), rank + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(2 * DIST_RANKS, dtype=torch.int32, device=dev)
+    probes = (
+        ("all_gather_into_tensor",
+         torch.empty(4 * DIST_RANKS, dtype=torch.int32, device=dev),
+         lambda o: dist.all_gather_into_tensor(o, x),
+         torch.arange(1, DIST_RANKS + 1).repeat_interleave(4)),
+        ("reduce_scatter_tensor",
+         torch.empty(2, dtype=torch.int32, device=dev),
+         lambda o: dist.reduce_scatter_tensor(o, ones),
+         torch.full((2,), DIST_RANKS)))
+    refused = {}
+    for op, o, call, want in probes:
+        try:
+            call(o)
+            torch.cuda.synchronize()
+            refused[op] = "took it, %s values" % (
+                "right" if o.cpu().tolist() == want.tolist() else "WRONG")
+        except Exception as e:  # a report of what gloo takes, no fallback
+            refused[op] = "refused: %s: %s" % (
+                type(e).__name__, str(e).splitlines()[0][:120])
+    with open(os.path.join(work, "gloo_cuda_r%d.json" % rank), "w") as f:
+        json.dump(refused, f)
+    dist.destroy_process_group()
+    print("rank %d of %d: done" % (rank, DIST_RANKS))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
+    # one of phase 16's gloo ranks, started by the script itself
+    ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-work", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-index", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-index2", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cornetto_tpu_torch")):
         fail("cornetto_tpu_torch/ not found beside chip_smoke.py: run it "
@@ -2233,6 +2694,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
+    if args.dist_rank is not None:
+        dist_worker(args)
+        return
 
     clock = [time.perf_counter()]
     phase_s = {}
@@ -2274,6 +2738,9 @@ def main():
            time.perf_counter() - t0))
     idx_path = os.path.join(work, "human_s%d" % args.seed)
     build_or_load_index(idx_path, contigs, codes, rows_bed)
+    # the same draft's table in two hash shards, for phase 16's (1, 2)
+    idx2_path = os.path.join(work, "human2_s%d" % args.seed)
+    build_or_load_index(idx2_path, contigs, codes, rows_bed, n_shards=2)
     t0 = time.perf_counter()
     idx, panel, _ = load_index(idx_path)
     torch.cuda.reset_peak_memory_stats()
@@ -2455,6 +2922,8 @@ def main():
     lap("14 cuda tests")
     rp = phase_replay(args.seed, work, idx_path, rfq)
     lap("15 replay")
+    dd = phase_dist(args.seed, work, idx_path, idx2_path, fq, card)
+    lap("16 dist")
     log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
         "W=%d S=%d: %.4f ms, plain %.4f ms, x.unfold(...).sum(...) %.4f ms "
         "(%s)" % (WIN, INC, ws_times["ms"], ws_times["plain_ms"],
@@ -2516,21 +2985,33 @@ def main():
     log("[phases] seconds: %s; total %.1f s"
         % (json.dumps(phase_s), sum(phase_s.values())))
 
+    for name, t in dd["timing"].items():
+        log("[7 numbers] sharded decision step %s, per 4096-read batch: "
+            "%.4f ms = %s; a decide_packed call %.4f ms (%s)"
+            % (name, t["step_ms"], " + ".join(
+                "%s %.4f" % kv for kv in t["split"].items()), t["call_ms"],
+               card))
     table = [
         # extraction runs inside the fused kernel on the main path: its
         # launches are the fused kernel's, its times the standalone's
-        ("extract_minima", "extract_minima", "pallas_extract.py:161",
-         launches, max_err, ktimes["nfree"]),
-        ("decide", "decide", "pallas_extract.py:161", launches, dec_err,
-         dec_t),
-        ("window_sum", "window_sum", "pallas_window.py:37", ws_launches,
-         max(ws_err, hp_err), ws_times),
-        ("sdust", "sdust", "pallas_sdust.py:316", an_launches["sdust"],
-         ak["sdust"]["err"], ak["sdust"]),
-        ("telo_match_mask", "telo", "pallas_telo.py:63",
+        ("extract_minima", "extract_minima",
+         "kernels/pallas_extract.py:161", launches, max_err,
+         ktimes["nfree"]),
+        ("decide", "decide", "kernels/pallas_extract.py:161", launches,
+         dec_err, dec_t),
+        # XLA in the JAX package: _decide_from_minima with ep_axis
+        ("votes", "votes", "livefish/decide.py:254",
+         dd["launches"]["votes"], dd["err"], dd["votes"]),
+        ("policy", "votes", "livefish/decide.py:268",
+         dd["launches"]["policy"], dd["err"], dd["policy"]),
+        ("window_sum", "window_sum", "kernels/pallas_window.py:37",
+         ws_launches, max(ws_err, hp_err), ws_times),
+        ("sdust", "sdust", "kernels/pallas_sdust.py:316",
+         an_launches["sdust"], ak["sdust"]["err"], ak["sdust"]),
+        ("telo_match_mask", "telo", "kernels/pallas_telo.py:63",
          an_launches["telo_match_mask"], ak["telo_match_mask"]["err"],
          ak["telo_match_mask"]),
-        ("telo_run_stats", "telo", "pallas_telo.py:147",
+        ("telo_run_stats", "telo", "kernels/pallas_telo.py:147",
          an_launches["telo_run_stats"], ak["telo_run_stats"]["err"],
          ak["telo_run_stats"])]
     kernels = []
@@ -2539,7 +3020,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "cornetto_tpu_torch/csrc/%s.cu" % src,
-            "replaces": "cornetto_tpu/kernels/%s" % replaces,
+            "replaces": "cornetto_tpu/%s" % replaces,
             "launches": n_launch, "max_abs_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": t.get("library_ms")})

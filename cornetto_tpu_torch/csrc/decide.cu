@@ -34,6 +34,9 @@
 //   so their order does not matter); the group's lane 0 takes the split
 //   means, the panel test and writes the read's outputs.
 //
+// The lookup and the policy are csrc/decide.cuh's, shared with the sharded
+// engine's kernels (csrc/votes.cu).
+//
 // Nothing depends on the number of contigs C but the panel's shape: the
 // plain version's one-hot (C <= 64) and (9, B*C) scatter-add go away.  A
 // table entry whose contig id is >= C is not a hit (the one-hot drops it).
@@ -45,6 +48,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decide.cuh"
 #include "minimizer.cuh"
 
 namespace {
@@ -87,80 +91,6 @@ __host__ __device__ __forceinline__ int group_words(int L, int nwin) {
   return read_words<V>(L) + 3 * nwin;
 }
 
-__device__ __forceinline__ uint32_t shr64(uint32_t x, int s) {
-  return s >= 32 ? 0u : x >> s;               // torch's int64 shift of u32
-}
-
-// floor division of int32 (torch.div(..., rounding_mode="floor"))
-__device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
-  int32_t q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
-  return q;
-}
-
-// _mean_split: floor((hi*2^16 + lo) / n) in int32, n clamped to >= 1, with
-// the reference's int32 wrapping
-__device__ __forceinline__ int32_t mean_split(int32_t hi, int32_t lo,
-                                              int32_t n) {
-  n = n < 1 ? 1 : n;
-  const int32_t q = floordiv(hi, n);
-  const int32_t r = static_cast<int32_t>(static_cast<uint32_t>(hi) -
-                                         static_cast<uint32_t>(q) *
-                                             static_cast<uint32_t>(n));
-  const int32_t num = static_cast<int32_t>(
-      (static_cast<uint32_t>(r) << 16) + static_cast<uint32_t>(lo));
-  return static_cast<int32_t>((static_cast<uint32_t>(q) << 16) +
-                              static_cast<uint32_t>(floordiv(num, n)));
-}
-
-// one bucket row of 2K int32: K/2 words of fingerprint pairs, K/2 of
-// contig pairs, K positions (livefish/index.py)
-template <int K>
-__device__ __forceinline__ void load_row(const int32_t* __restrict__ bt,
-                                         uint32_t bucket, int32_t (&row)[2 * K]) {
-  const int4* p = reinterpret_cast<const int4*>(
-      bt + static_cast<size_t>(bucket) * (2 * K));
-#pragma unroll
-  for (int i = 0; i < K / 2; ++i) {
-    const int4 v = __ldg(p + i);
-    row[4 * i] = v.x;
-    row[4 * i + 1] = v.y;
-    row[4 * i + 2] = v.z;
-    row[4 * i + 3] = v.w;
-  }
-}
-
-struct Match {
-  bool found, has2;
-  uint32_t contig;
-  int32_t pos1, pos2;
-};
-
-// the reference's slot walk: the first match sets contig and pos1, the
-// next one (the second slot of an ambiguous hash) sets pos2
-template <int K>
-__device__ __forceinline__ void match_row(const int32_t (&row)[2 * K],
-                                          uint32_t want, Match& m) {
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    const uint32_t fp =
-        (static_cast<uint32_t>(row[s / 2]) >> (16 * (s % 2))) & 0xFFFFu;
-    const uint32_t ct =
-        (static_cast<uint32_t>(row[K / 2 + s / 2]) >> (16 * (s % 2))) &
-        0xFFFFu;
-    const bool hit = fp == want && ct != 0xFFFFu;
-    const bool is2 = hit && m.found && !m.has2;
-    const bool is1 = hit && !m.found;
-    if (is1) {
-      m.contig = ct;
-      m.pos1 = row[K + s];
-    }
-    if (is2) m.pos2 = row[K + s];
-    m.has2 = m.has2 || is2;
-    m.found = m.found || hit;
-  }
-}
-
 template <int V, int K>
 __global__ void __launch_bounds__(kThreads) decide_kernel(Params p) {
   extern __shared__ uint32_t smem[];
@@ -178,30 +108,15 @@ __global__ void __launch_bounds__(kThreads) decide_kernel(Params p) {
                                    base, base + code_words(L));
   __syncwarp(g.mask);
 
-  const uint32_t nbm1 = (1u << p.log2nb) - 1u;
-  const int fp_shift = p.bucket_shift + p.log2nb;
   int nhit = 0;                                    // uniform in the group
   for (int j0 = 0; j0 < nwin; j0 += g.size) {
     const int j = j0 + g.lane;
     Match m = {false, false, 0u, 0, 0};
     if (j < nwin) {
       const uint32_t q = window_min<V>(r, j, p.k, p.w);
-      if (q != kSentinel) {
-        const uint32_t b1 = shr64(q, p.bucket_shift) & nbm1;
-        const uint32_t fp = shr64(q, fp_shift);
-        int32_t row1[2 * K], row2[2 * K];
-        load_row<K>(p.btable, b1, row1);
-        uint32_t fp2 = 0;
-        if (p.two_choice) {
-          const uint32_t g =
-              shr64(fp * 0x9E3779B1u, 32 - p.log2nb) & nbm1;
-          fp2 = fp | (1u << 15);
-          load_row<K>(p.btable, b1 ^ g, row2);     // in flight with row1
-        }
-        match_row<K>(row1, fp, m);
-        if (p.two_choice) match_row<K>(row2, fp2, m);
-        m.found = m.found && m.contig < static_cast<uint32_t>(p.C);
-      }
+      if (q != kSentinel)
+        m = lookup<K>(p.btable, q, p.log2nb, p.bucket_shift,
+                      p.two_choice != 0, p.C);
     }
     const unsigned ball = group_ballot(g, m.found);
     if (m.found) {
@@ -262,23 +177,19 @@ __global__ void __launch_bounds__(kThreads) decide_kernel(Params p) {
   if (g.lane != 0) return;
 
   // the policy (_decide_from_minima)
-  const int32_t nhits = static_cast<int32_t>(votes);
-  const int32_t hq = static_cast<int32_t>(un);
-  const int32_t va = static_cast<int32_t>(am);
-  const bool have_un = hq > 0;
-  const int32_t est_amb1 = mean_split(static_cast<int32_t>(a1_hi),
-                                      static_cast<int32_t>(a1_lo), va);
-  const int32_t est = have_un ? mean_split(static_cast<int32_t>(nu_hi),
-                                           static_cast<int32_t>(nu_lo), hq)
-                              : est_amb1;
-  const int32_t est2 = have_un ? est
-                               : mean_split(static_cast<int32_t>(a2_hi),
-                                            static_cast<int32_t>(a2_lo), va);
-  int32_t bin = floordiv(est, p.bin_size);
-  bin = bin < 0 ? 0 : (bin > p.bins - 1 ? p.bins - 1 : bin);
-  const bool in_panel =
-      p.panel[static_cast<size_t>(best) * p.bins + bin] != 0;
-  const int32_t decision = (nhits >= p.min_hits && in_panel) ? 0 : 1;
+  const int32_t planes[9] = {
+      static_cast<int32_t>(votes), static_cast<int32_t>(un),
+      static_cast<int32_t>(nu_hi), static_cast<int32_t>(nu_lo),
+      static_cast<int32_t>(am), static_cast<int32_t>(a1_hi),
+      static_cast<int32_t>(a1_lo), static_cast<int32_t>(a2_hi),
+      static_cast<int32_t>(a2_lo)};
+  const Policy pol =
+      policy(planes, best, p.panel, p.bins, p.min_hits, p.bin_size);
+  const int32_t nhits = planes[0];
+  const int32_t hq = planes[1];
+  const int32_t decision = pol.decision;
+  const int32_t est = pol.est;
+  const int32_t est2 = pol.est2;
   if (p.fused != nullptr) {
     const int32_t nh = nhits < 0x3FFF ? nhits : 0x3FFF;
     p.fused[row] = (decision << 30) | (nh << 16) |

@@ -1,2 +1,3 @@
-"""Index persistence of the port (``checkpoint``: the shared ``.npz`` index
-format)."""
+"""The port's multi-device runtime on torch.distributed (``multihost``,
+``mesh``, ``collectives``, ``scan``) and its index persistence
+(``checkpoint``: the shared ``.npz`` index format)."""

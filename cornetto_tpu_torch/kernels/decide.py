@@ -29,7 +29,7 @@ SLOTS = (4, 8, 16)          # bucket_slots an index may have (livefish.index)
 
 def _lookup_votes(btable: torch.Tensor, bucket_shift: int,
                   q_hash: torch.Tensor, q_valid: torch.Tensor,
-                  n_contigs: int, two_choice: bool):
+                  n_contigs: int, two_choice: bool, owner=None):
     """Fingerprinted bucket-table lookup + per-contig vote reduction
     (cornetto_tpu.livefish.decide._lookup_votes, which documents the row
     layout and the 9 planes).  ``two_choice`` must match how the index was
@@ -37,13 +37,23 @@ def _lookup_votes(btable: torch.Tensor, bucket_shift: int,
 
     q_hash (b, M) int32 uint32 bit patterns, q_valid (b, M) bool.  Returns
     9 (b, C) int32 planes: votes, votes_un, nu_hi, nu_lo, votes_amb,
-    a1_hi, a1_lo, a2_hi, a2_lo."""
+    a1_hi, a1_lo, a2_hi, a2_lo.
+
+    ``owner`` = (ep, shard) makes this one shard's share of a table
+    hash-sharded over ep (the extract-once sharded protocol,
+    cornetto_tpu/livefish/decide.py:254-259): a query counts only where
+    (hash & (ep - 1)) == shard, the hashes this shard owns, which also
+    makes its fingerprint comparison exact.  The shards' planes summed are
+    the planes of the whole table."""
     b, M = q_hash.shape
     dev = q_hash.device
     n_buckets = btable.shape[0]
     K = btable.shape[1] // 2
     log2b = int(n_buckets).bit_length() - 1
     q = as_u32(q_hash.reshape(-1))            # logical shifts on uint32
+    if owner is not None:
+        ep, shard = owner
+        q_valid = q_valid & ((q & (ep - 1)) == shard).reshape(b, M)
     bucket = (q >> bucket_shift) & (n_buckets - 1)
     qfp = q >> (bucket_shift + log2b)
     if two_choice:
@@ -119,11 +129,21 @@ def _mean_split(hi, lo, n):
 
 def _decide_from_minima(btable, h, valid, panel_mask, min_hits: int,
                         bin_size: int, bucket_shift: int, two_choice: bool):
-    """Votes + decision from extracted minimizer hashes.  Returns
-    (decision (b,) int8 — 1 proceed / 0 unblock, best_contig, est_pos,
-    nhits, nhits_hq, est_pos2), each (b,) int32 but the decision."""
+    """Votes + decision from extracted minimizer hashes: ``_lookup_votes``
+    then ``_policy_from_stats``.  Returns (decision (b,) int8 — 1 proceed /
+    0 unblock, best_contig, est_pos, nhits, nhits_hq, est_pos2), each (b,)
+    int32 but the decision."""
     stats9 = _lookup_votes(btable, bucket_shift, h, valid,
                            panel_mask.shape[0], two_choice)
+    return _policy_from_stats(stats9, panel_mask, min_hits, bin_size)
+
+
+def _policy_from_stats(stats9, panel_mask, min_hits: int, bin_size: int):
+    """The policy on the 9 (b, C) int32 planes of ``_lookup_votes`` (summed
+    over the shards on a sharded engine): best contig (the first maximum
+    of the votes, as jnp.argmax), exact split-sum position means, panel
+    test (cornetto_tpu/livefish/decide.py:268-296).  Returns the six (b,)
+    outputs of ``_decide_from_minima``."""
     (votes, votes_un, nu_hi, nu_lo, votes_amb,
      a1_hi, a1_lo, a2_hi, a2_lo) = stats9
     # argmax returns the first maximum, as jnp.argmax does

@@ -1,5 +1,6 @@
 """Adaptive-sampling decision engine in PyTorch: counterpart of
-cornetto_tpu/livefish/decide.py (single device).
+cornetto_tpu/livefish/decide.py, on one device (``SingleChipEngine``) and
+sharded over a (dp, ep) mesh of processes (``make_sharded_engine``).
 
 One decision step on a batch of 2-bit packed reads:
 
@@ -22,6 +23,14 @@ The read-until chunk engine (livefish.chunks.DeviceChunkEngine) keeps each
 channel's packed chunks on the device (``init_chunk_state``); a tick
 (``decide_chunk_tick``, ``chunk_tick_core``) scatters the new chunks into
 that buffer, gathers the prefixes to decide and runs the same fused step.
+
+The sharded engine keeps the JAX package's extract-once protocol: each
+rank extracts the minimizers of its own rows, the ep group all-gathers
+them, each rank looks up the hashes its shard of the table owns
+(kernels.votes.sharded_votes), one reduce-scatter sums the nine vote
+planes back to the rows' owners, the policy runs there
+(kernels.votes.policy_from_stats) and one all-gather gives every rank the
+whole batch's outputs.
 """
 
 from dataclasses import dataclass
@@ -30,9 +39,13 @@ import numpy as np
 import torch
 
 from cornetto_tpu_torch.device import resolve_device
+from cornetto_tpu_torch.dist import collectives
+from cornetto_tpu_torch.dist.multihost import local_device
 from cornetto_tpu_torch.kernels.decide import (  # noqa: F401 (re-exported)
     _decide_from_minima, _lookup_votes, _mean_split, decide_packed)
+from cornetto_tpu_torch.kernels.extract import extract_minima
 from cornetto_tpu_torch.kernels.minimizer import pack_reads
+from cornetto_tpu_torch.kernels.votes import policy_from_stats, sharded_votes
 from cornetto_tpu_torch.livefish.index import MinimizerIndex
 
 
@@ -59,13 +72,20 @@ def state_from_index(index: MinimizerIndex, panel_mask: np.ndarray,
     if index.n_shards != 1:
         raise ValueError("single-device engine needs a 1-shard index "
                          "(got %d shards)" % index.n_shards)
+    return shard_state(index, 0, panel_mask, device)
+
+
+def shard_state(index: MinimizerIndex, shard: int, panel_mask: np.ndarray,
+                device) -> EngineState:
+    """Shard ``shard`` of an index's table, its panel mask and parameters
+    on ``device``."""
     if panel_mask.shape[0] >= (1 << 16):
         # the fused readback packs best_contig into 16 bits
         raise ValueError("too many contigs for the fused readback")
     device = torch.device(device)
     return EngineState(
         btable=torch.from_numpy(np.ascontiguousarray(
-            index.btable[0], dtype=np.int32)).to(device),
+            index.btable[shard], dtype=np.int32)).to(device),
         panel=torch.from_numpy(np.ascontiguousarray(
             panel_mask, dtype=bool)).to(device),
         k=int(index.k), w=int(index.w),
@@ -231,3 +251,131 @@ def chunk_tick_core(buf, btable, rows, s_chans, s_slots, d_chans, lengths,
     g = buf.index_select(0, d_chans).reshape(d_chans.shape[0], -1)
     return buf, decision_core_packed_fused(btable, g, None, panel_mask,
                                            lengths=lengths, **kw)
+
+
+class ShardedEngine:
+    """The decision step sharded over a (dp, ep) mesh of processes
+    (make_sharded_engine).  Every rank of the mesh calls it with the same
+    global batch and gets the whole batch's six outputs on its device."""
+
+    def __init__(self, mesh, index: MinimizerIndex, panel_mask: np.ndarray,
+                 params: DecisionParams = DecisionParams()):
+        self.ep = mesh.shape["ep"]
+        assert index.n_shards == self.ep, (index.n_shards, self.ep)
+        self.mesh = mesh
+        self.shard = mesh.index("ep")
+        # rows are split over both axes, dp-major (P(("dp", "ep")))
+        self.block = mesh.index("dp") * self.ep + self.shard
+        self.n_blocks = mesh.shape["dp"] * self.ep
+        self.device = local_device()
+        # this rank's shard of the table only
+        self.state = shard_state(index, self.shard, panel_mask, self.device)
+        self.params = params
+
+    def __call__(self, reads: np.ndarray):
+        return self.decide(reads)
+
+    def decide(self, reads: np.ndarray):
+        """(B, L) uint8 codes (4 = N), B divisible by dp * ep -> the six
+        (B,) decision outputs.  Packs this rank's rows on the host."""
+        B, L = reads.shape
+        self._check(B)
+        packed, nmask = pack_reads(self._block_of(reads))
+        return self.step(self._put(packed), self._put(nmask), None, L)
+
+    def decide_packed(self, packed: np.ndarray, nmask, L: int,
+                      lengths=None):
+        """Packed input (kernels.minimizer.pack_reads): nmask None for
+        N-free batches, lengths (B,) int32 for short reads (nmask wins when
+        both are given).  Uploads only this rank's rows."""
+        return self.step(*self.upload(packed, nmask, lengths), L)
+
+    def upload(self, packed: np.ndarray, nmask, lengths=None):
+        """This rank's rows of a global packed batch, on its device:
+        (packed, nmask or None, lengths or None), the lengths dropped when
+        there is an N bitmap."""
+        B = packed.shape[0]
+        self._check(B)
+        pick = lambda a: None if a is None else self._put(  # noqa: E731
+            self._block_of(a))
+        nm = pick(nmask)
+        return pick(packed), nm, None if nm is not None else pick(lengths)
+
+    def _check(self, B: int):
+        if B % self.n_blocks:
+            raise ValueError("batch of %d rows: must be divisible by dp * ep "
+                             "= %d" % (B, self.n_blocks))
+
+    def _block_of(self, a: np.ndarray) -> np.ndarray:
+        b = a.shape[0] // self.n_blocks
+        return a[self.block * b:(self.block + 1) * b]
+
+    def _put(self, a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(self.device)
+
+    def step(self, packed, nmask, lengths, L: int, mark=None):
+        """The sharded step on this rank's rows (device tensors): returns
+        the whole batch's six outputs.  ``mark``, when given, is called with
+        each stage's name as the stage is issued: "extract", "gather",
+        "votes", "reduce", "policy", "outputs"."""
+        mark = mark or (lambda name: None)
+        ep_group = self.mesh.groups["ep"]
+        st, p = self.state, self.params
+        C = st.panel.shape[0]
+        h, valid = extract_minima(packed, nmask, L, st.k, st.w,
+                                  lengths=lengths)
+        mark("extract")
+        # the hashes and the valid flags in one all-gather: b rows of 4 M
+        # hash bytes and M flag bytes
+        b, M = h.shape
+        both = collectives.all_gather(
+            torch.cat([h.view(torch.uint8), valid.view(torch.uint8)], dim=1),
+            ep_group)
+        h_all = both[:, :4 * M].contiguous().view(torch.int32)
+        valid_all = both[:, 4 * M:].contiguous().view(torch.bool)
+        mark("gather")
+        planes = sharded_votes(h_all, valid_all, st.btable, st.bucket_shift,
+                               st.two_choice, self.ep, self.shard, C,
+                               parts=self.ep)
+        if self.ep == 1:
+            planes = planes[None]
+        mark("votes")
+        stats = collectives.reduce_scatter_sum(planes, ep_group)
+        mark("reduce")
+        outs = policy_from_stats(stats, st.panel, p.min_hits, p.bin_size)
+        mark("policy")
+        six = collectives.all_gather(
+            torch.stack([o.to(torch.int32) for o in outs]), self.mesh.group)
+        six = six.view(self.n_blocks, 6, b).transpose(0, 1).reshape(6, -1)
+        mark("outputs")
+        return (six[0].to(torch.int8),) + tuple(six[1:].unbind(0))
+
+
+def make_sharded_engine(mesh, index: MinimizerIndex, panel_mask: np.ndarray,
+                        params: DecisionParams = DecisionParams()
+                        ) -> ShardedEngine:
+    """The decision step over a ("dp", "ep") mesh (dist.mesh.make_mesh) of
+    processes: counterpart of cornetto_tpu/livefish/decide.py::
+    make_sharded_engine.
+
+    The returned engine takes reads (B, L) uint8 (``engine(reads)`` or
+    ``engine.decide``) or packed reads (``engine.decide_packed(packed,
+    nmask, L, lengths=None)``), B divisible by dp * ep, the same global
+    batch on every rank of the mesh; each rank uploads and extracts only
+    its own block of rows (block dp_idx * ep + ep_idx, the row order of
+    P(("dp", "ep"))) and holds only its shard of the table,
+    index.btable[ep_idx] (index.n_shards must equal ep), on its device
+    (dist.multihost.local_device).  Every rank gets
+    the whole batch's six outputs, as the JAX callable returns one global
+    array, so the chunk engine (livefish.chunks) and any caller written for
+    SingleChipEngine run unchanged on every rank.
+
+    A step launches the extraction kernel, the votes kernel and the policy
+    kernel once each, and runs three collectives: an all-gather of the
+    minimizers over ep, a reduce-scatter of the int32 vote planes over ep
+    (sums wrap as JAX's psum_scatter does), an all-gather of the outputs
+    over the mesh."""
+    if not mesh.member:
+        raise ValueError("this rank is outside the mesh")
+    return ShardedEngine(mesh, index, panel_mask, params)

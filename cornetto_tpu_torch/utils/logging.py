@@ -44,6 +44,11 @@ def info(msg: str) -> None:
         _emit("[INFO]", msg)
 
 
+def verbose(msg: str) -> None:
+    if _log_level >= LOG_VERB:
+        _emit("[VERBOSE]", msg)
+
+
 def die(msg: str, code: int = 1) -> "NoReturn":  # noqa: F821
     error(msg)
     sys.exit(code)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 minimizer extraction, the fused decision step (extraction, lookup, votes
-and policy in one launch), window sums and window stats, the SDUST DP
-(against the port's sequential native DP too) and the two telomere
-kernels.
+and policy in one launch), the sharded engine's shard-masked votes and its
+policy, window sums and window stats, the SDUST DP (against the port's
+sequential native DP too) and the two telomere kernels.
 Integers and booleans throughout; tolerance: exact equality.  Inputs from a
 numpy seed.
 
@@ -29,6 +29,10 @@ from cornetto_tpu_torch.kernels.minimizer import pack_reads
 from cornetto_tpu_torch.kernels.sdust import (BUDGET_MAX, BUDGET_MIN,
                                               sdust_device, sdust_dp,
                                               sdust_dp_ref)
+from cornetto_tpu_torch.kernels.votes import (policy_from_stats,
+                                              policy_from_stats_ref,
+                                              shared_limit, sharded_votes,
+                                              sharded_votes_ref)
 from cornetto_tpu_torch.kernels.telo import (telo_match_mask,
                                              telo_match_mask_ref,
                                              telo_match_positions,
@@ -650,3 +654,151 @@ def test_device_chunk_tick_surfaces_a_length_the_kernel_refuses(cuda_device):
                                   batch=2)
     with pytest.raises(RuntimeError, match="decide kernel launch failed"):
         ce.process([chunks.ChunkEvent(0, "r0", "ACGT" * 15_000)])
+
+
+# ---------------------------------------------------- sharded votes, policy
+
+def _one_contig_index(ep):
+    from cornetto_tpu_torch.livefish.index import (build_index,
+                                                   build_panel_mask)
+    codes = [np.random.default_rng(31).integers(0, 4, size=60_000,
+                                                dtype=np.uint8)]
+    idx = build_index([("c0", "".join(ACGT[codes[0]]))], n_shards=ep)
+    return idx, build_panel_mask(idx, [("c0", 0, 30_000)]), codes
+
+
+@functools.lru_cache(maxsize=None)
+def _votes_case(n_ctg, ep, two_choice):
+    """(the ep-shard index, its panel, 64 reads packed as (packed, nmask,
+    lengths)) of a seeded draft of n_ctg contigs: tests/_decide_cases.py's
+    draft and batch (ambiguous, tied and no-hit reads among them), or one
+    random contig sampled plainly."""
+    from cornetto_tpu_torch.livefish.index import (build_index,
+                                                   build_panel_mask)
+    if n_ctg == 1:
+        idx, panel, codes = _one_contig_index(ep)
+        rng = np.random.default_rng(32)
+        reads = np.stack([codes[0][s:s + 450] for s in
+                          rng.integers(0, 60_000 - 450, size=64)])
+        reads[::7] = rng.integers(0, 4, size=reads[::7].shape)
+        packed, _ = pack_reads(reads)
+        return idx, panel, (packed, None, None)
+    idx1, panel1, codes = dc.index(8, n_ctg, two_choice, L=450)
+    packed, nmask, lengths, _ = dc.batch(8, idx1, panel1, codes, "lengths")
+    names = ["c%d" % i for i in range(n_ctg)]
+    idx = build_index(((n, "".join(ACGT[c])) for n, c in zip(names, codes)),
+                      n_shards=ep, two_choice=two_choice)
+    rows = [(n, 0, len(c)) for n, c in zip(names[::2], codes[::2])]
+    return idx, build_panel_mask(idx, rows), (packed, nmask, lengths)
+
+
+# (contigs in the draft, C the kernels are given): C = 1; C = 3; C = 87,
+# the human-scale draft's count (the plain version's scatter-add side);
+# and one past the largest C whose planes fit shared memory (global
+# atomics), with the panel padded by contigs no read hits
+VOTES_C = [(1, 1), (3, 3), (87, 87), (3, "past")]
+
+
+def _padded_panel(panel, C):
+    out = np.zeros((C, panel.shape[1]), dtype=bool)
+    out[:panel.shape[0]] = panel
+    return out
+
+
+@pytest.mark.parametrize("two_choice", [True, False])
+@pytest.mark.parametrize("ep", [1, 2, 4])
+@pytest.mark.parametrize("n_ctg,C", VOTES_C)
+def test_sharded_votes_and_policy_match_plain(cuda_device, n_ctg, C, ep,
+                                              two_choice):
+    """Each shard's votes kernel against its plain version on the same card
+    tensors (owner masks at ep 1, 2, 4), in one block and in ep parts; the
+    planes summed over the shards through the policy kernel against the
+    plain policy; one launch a call."""
+    idx, panel, (packed, nmask, lengths) = _votes_case(n_ctg, ep,
+                                                       two_choice)
+    C = shared_limit() + 1 if C == "past" else C
+    put = lambda a: None if a is None else torch.from_numpy(a).to(  # noqa
+        cuda_device)
+    h, v = extract_minima(put(packed), put(nmask), 450, idx.k, idx.w,
+                          lengths=put(lengths))
+    total = None
+    for shard in range(ep):
+        bt = put(np.ascontiguousarray(idx.btable[shard]))
+        args = (h, v, bt, idx.bucket_shift, idx.two_choice, ep, shard, C)
+        before = sharded_votes.launches
+        got = sharded_votes(*args)
+        parts = sharded_votes(*args, parts=ep)
+        torch.cuda.synchronize()
+        assert sharded_votes.launches == before + 2
+        want = sharded_votes_ref(*args)
+        assert got.shape == (9, 64, C) and torch.equal(got, want)
+        assert torch.equal(parts, sharded_votes_ref(*args, parts=ep))
+        assert torch.equal(parts.reshape(ep, 9, 64 // ep, C).transpose(0, 1)
+                           .reshape(9, 64, C), got)
+        total = got if total is None else total + got
+    assert int(total[0].sum()) > 0
+    pn = put(_padded_panel(panel, C))
+    before = policy_from_stats.launches
+    outs = policy_from_stats(total, pn, 3, 1000)
+    torch.cuda.synchronize()
+    assert policy_from_stats.launches == before + 1
+    for g, r in zip(outs, policy_from_stats_ref(total.cpu(), pn.cpu(), 3,
+                                                1000)):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("C", [3, "past"])
+def test_sharded_votes_of_a_batch_with_no_hit(cuda_device, C):
+    """No valid window (an all-N batch): every plane is zero in both the
+    shared-memory and the global-atomics form, and the policy proceeds on
+    contig 0 at position 0."""
+    idx, panel, _ = _votes_case(3, 2, True)
+    C = shared_limit() + 1 if C == "past" else C
+    h = torch.randint(-2**31, 2**31 - 1, (64, 44), dtype=torch.int32,
+                      device=cuda_device)
+    v = torch.zeros((64, 44), dtype=torch.bool, device=cuda_device)
+    bt = torch.from_numpy(np.ascontiguousarray(idx.btable[1])).to(
+        cuda_device)
+    got = sharded_votes(h, v, bt, idx.bucket_shift, True, 2, 1, C)
+    assert got.shape == (9, 64, C) and not got.any()
+    outs = policy_from_stats(got, torch.from_numpy(_padded_panel(
+        panel, C)).to(cuda_device), 3, 1000)
+    assert outs[0].tolist() == [1] * 64
+    assert not any(o.any() for o in outs[1:])
+
+
+@pytest.mark.parametrize("C", [1, 5, 32, 33, 87, 6457])
+def test_policy_kernel_takes_the_first_maximum(cuda_device, C):
+    """Votes drawn from 0..2, so most rows tie: the warp's lanes stride over
+    the columns and the kernel must pick the first maximum, as argmax
+    does; planes with negative (wrapped) sums and a random panel."""
+    rng = np.random.default_rng(C)
+    b = 257
+    stats = rng.integers(-3, 2**20, size=(9, b, C)).astype(np.int32)
+    stats[0] = rng.integers(0, 3, size=(b, C))
+    stats[0, 0] = 2                                  # a row of all ties
+    stats[0, 1, C // 2:] = 5                         # ties past lane 0
+    stats[1] = rng.integers(0, 3, size=(b, C))
+    panel = rng.random((C, 7)) < 0.5
+    want = policy_from_stats_ref(torch.from_numpy(stats),
+                                 torch.from_numpy(panel), 2, 1000)
+    got = policy_from_stats(torch.from_numpy(stats).to(cuda_device),
+                            torch.from_numpy(panel).to(cuda_device), 2, 1000)
+    torch.cuda.synchronize()
+    assert int(got[1][0]) == 0 and int(got[1][1]) == C // 2
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+
+
+def test_sharded_votes_rejects_a_misaligned_table(cuda_device):
+    idx, _, _ = _votes_case(3, 2, True)
+    flat = torch.from_numpy(np.ascontiguousarray(idx.btable[0])).to(
+        cuda_device).reshape(-1)
+    rows = idx.btable.shape[1] // 2                  # a power of two
+    view = flat[1:1 + rows * 8].reshape(rows, 8)     # 4 bytes off
+    h = torch.zeros((4, 3), dtype=torch.int32, device=cuda_device)
+    v = torch.ones((4, 3), dtype=torch.bool, device=cuda_device)
+    before = sharded_votes.launches
+    with pytest.raises(ValueError):
+        sharded_votes(h, v, view, idx.bucket_shift, True, 2, 0, 3)
+    assert sharded_votes.launches == before

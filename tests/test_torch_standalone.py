@@ -1,6 +1,7 @@
 """The port stands alone: no source file of ``cornetto_tpu_torch`` (nor
 ``chip_smoke.py``, ``bench_decide.py``, ``bench_telo_mask.py`` or
-``bench_telo_stats.py``, nor the
+``bench_telo_stats.py``, nor the gloo ranks of tests/test_torch_dist.py,
+tests/_torch_dist_worker.py, nor the
 card tests of tests/test_torch_cuda_kernels.py and their cases in
 tests/_decide_cases.py, which run where JAX is not installed) imports the
 JAX package, and the
@@ -23,6 +24,7 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in
     ["bench_decide.py", "bench_telo_mask.py", "bench_telo_stats.py",
      "chip_smoke.py",
      "tests/_decide_cases.py",
+     "tests/_torch_dist_worker.py",
      "tests/test_torch_cuda_kernels.py"]
 
 
@@ -57,6 +59,11 @@ def test_sources_listed():
     assert "tests/test_torch_cuda_kernels.py" in SOURCES
     assert "cornetto_tpu_torch/kernels/decide.py" in SOURCES
     assert "tests/_decide_cases.py" in SOURCES
+    for path in ("dist/mesh.py", "dist/multihost.py", "dist/scan.py",
+                 "dist/collectives.py", "kernels/votes.py",
+                 "utils/profiling.py"):
+        assert "cornetto_tpu_torch/" + path in SOURCES
+    assert "tests/_torch_dist_worker.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)
