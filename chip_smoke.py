@@ -115,7 +115,19 @@ checkout.  It:
    SingleChipEngine, plus an sp scan of chr1's length held to the
    single-device window stats; the votes and policy kernels against their
    plain versions at C = 1, 87 and past the shared-memory limit, timed by
-   graph replay; the sharded step's per-stage split from CUDA events.
+   graph replay; the sharded step's per-stage split from CUDA events;
+17. the host subcommands through `cornetto_tpu_torch.cli`: `telostats` on
+   test_data/gen_synth_pipe.py's assembly and on test_data/synth, each
+   byte-equal to test_data/golden/pipelines/{telo,telosmall} with
+   telomere-mask launches, and on phase 13's chr1-chr3 cut on the card
+   against a CORNETTO_FORCE_CPU=1 run (both walls); `recreate-panel`
+   against its golden panel; `sdust -w 67` and `-t 4` on the default
+   backend (the host DP, no SDUST launch) byte-equal to `--backend host`,
+   and `--backend device -w 67` exiting 1; fa2bed, seq, telocontigs, nx,
+   report, asmstats and fixasm against their goldens; `depth` over BED
+   regions of test_data/example.bam against its reads' CIGARs, and a
+   `bammerge` of it with itself (with and without its .bai) whose depth
+   is twice the input's.
 
 Phase 2 builds the six kernel sources in parallel; phases 3, 11 and 16
 hold each kernel bit-equal to its plain PyTorch version on the card.  Imports
@@ -132,6 +144,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -822,8 +835,10 @@ def force_cpu():
             os.environ["CORNETTO_FORCE_CPU"] = old
 
 
-def run_cli_quiet(argv, stdout_path: str, stderr_path: str) -> None:
-    """One port CLI command in this process, stdout and stderr to files."""
+def run_cli_quiet(argv, stdout_path: str, stderr_path: str,
+                  rc_want: int = 0) -> None:
+    """One port CLI command in this process, stdout and stderr to files;
+    fails unless it exits rc_want."""
     from cornetto_tpu_torch.cli import main as cli
     with open(stdout_path, "w") as fo, open(stderr_path, "w") as fe, \
             contextlib.redirect_stdout(fo), contextlib.redirect_stderr(fe):
@@ -831,10 +846,11 @@ def run_cli_quiet(argv, stdout_path: str, stderr_path: str) -> None:
             rc = cli(["cornetto"] + argv)
         except SystemExit as e:          # log.die
             rc = e.code
-    if rc != 0:
+    if rc != rc_want:
         with open(stderr_path) as f:
             tail = f.read()[-2000:]
-        fail("%s exited %d:\n%s" % (" ".join(argv[:2]), rc, tail))
+        fail("%s exited %d, not %d:\n%s" % (" ".join(argv[:2]), rc, rc_want,
+                                             tail))
 
 
 def phase_goldens(work: str):
@@ -953,7 +969,7 @@ def create_panel(src: str, run_dir: str):
 
 
 def tree_bytes(root: str):
-    """Every file a create-panel run wrote under root, but its stderr log
+    """Every file a run wrote under root, but create-panel's stderr log
     (timings) and the input links."""
     out = {}
     for base, _, files in os.walk(root):
@@ -2678,6 +2694,288 @@ def dist_worker(args):
     print("rank %d of %d: done" % (rank, DIST_RANKS))
 
 
+# ---------------------------------------------------------------- host tools
+
+# example.bam's reads lie on chr22 (19,979,850-20,032,355); depth runs over
+# BED regions, never the whole genome (its references are GRCh38's: a
+# per-base table of every reference would be ~60 GB)
+DEPTH_REGIONS = [("chr22", 19_979_000, 20_040_000), ("chr22", 0, 2_000),
+                 ("chr21", 500, 900)]
+
+
+def _in_dir(path: str, inputs):
+    """A fresh directory holding links to the inputs ({name: source})."""
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    for name, src in inputs.items():
+        os.symlink(src, os.path.join(path, name))
+    return path
+
+
+def _cli_in(path: str, argv, rc_want: int = 0):
+    """run_cli_quiet with path as the working directory: (stdout bytes,
+    stderr bytes before the CLI's footer)."""
+    out, err = path + ".stdout", path + ".stderr"
+    with contextlib.chdir(path):
+        run_cli_quiet(argv, out, err, rc_want)
+    with open(out, "rb") as fo, open(err, "rb") as fe:
+        o, e = fo.read(), fe.read()
+    return o, e[:e.rfind(b"[main] Version:")]
+
+
+def _pipe_inputs(path: str) -> str:
+    """test_data/gen_synth_pipe.py's assembly and lowQ BED (the inputs of
+    the telo and recreate goldens; the bedgraphs are not needed here)."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(HERE, "test_data"))
+    import gen_synth_pipe as gsp
+    if not os.path.exists(os.path.join(path, ".done-" + gsp.VERSION)):
+        os.makedirs(path, exist_ok=True)
+        gsp.OUT = path
+        gsp.gen_fasta(np.random.default_rng(20260819))   # as gsp.ensure()
+        gsp.gen_lowq(None)
+        open(os.path.join(path, ".done-" + gsp.VERSION), "w").close()
+    return path
+
+
+def _depth_rows(out: bytes):
+    return [int(r.rsplit(b"\t", 1)[1]) for r in out.splitlines()]
+
+
+def phase_host_tools(seed: int, work: str, draft: str):
+    """Phase 17: telostats, recreate-panel, sdust's default-backend
+    routing and the host tools through the port's CLI on the card."""
+    import numpy as np
+    import torch
+    from cornetto_tpu_torch.io.bam import BamFile
+    from cornetto_tpu_torch.kernels.sdust import sdust_dp
+    from cornetto_tpu_torch.kernels.telo import telo_match_mask
+    root = os.path.join(work, "host")
+    os.makedirs(root, exist_ok=True)
+    synth = os.path.join(HERE, "test_data", "synth")
+    gold = os.path.join(HERE, "test_data", "golden")
+    pgold = os.path.join(gold, "pipelines")
+    pipe = _pipe_inputs(os.path.join(work, "synth_pipe"))
+    asm = os.path.join(synth, "asm.fasta")
+    res = {}
+
+    def golden(path, name):
+        with open(os.path.join(path, name), "rb") as f:
+            return f.read()
+
+    # telostats on the two pipeline goldens: stdout and the ends BED
+    for sub, fa in (("telo", os.path.join(pipe, "pasm.fasta")),
+                    ("telosmall", asm)):
+        local = os.path.basename(fa)
+        d = _in_dir(os.path.join(root, "telostats_" + sub), {local: fa})
+        telo_match_mask.launches = 0
+        out, _ = _cli_in(d, ["telostats", local])
+        launches = telo_match_mask.launches
+        bed = local.rsplit(".", 1)[0] + ".windows.0.4.50kb.ends.bed"
+        same = out == golden(os.path.join(pgold, sub), "telostats.stdout") \
+            and tree_bytes(d)[bed] == golden(os.path.join(pgold, sub), bed)
+        log("[17 host tools] telostats %s: stdout and %s byte-equal to "
+            "golden/pipelines/%s: %s, telomere-mask launches %d"
+            % (local, bed, sub, same, launches))
+        if not same or launches == 0:
+            fail("telostats %s differs from its golden or launched no mask "
+                 "kernel" % local)
+
+    # telostats on phase 13's chr1-chr3 cut: the card against the CPU
+    walls = {}
+    trees = {}
+    for where in ("card", "cpu"):
+        d = _in_dir(os.path.join(root, "telostats_cut_" + where),
+                    {"draft.fasta": draft})
+        telo_match_mask.launches = 0
+        t0 = time.perf_counter()
+        if where == "cpu":
+            with force_cpu():
+                _cli_in(d, ["telostats", "draft.fasta"])
+        else:
+            _cli_in(d, ["telostats", "draft.fasta"])
+            torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+        walls[where + "_launches"] = telo_match_mask.launches
+        with open(d + ".stdout", "rb") as f:
+            trees[where] = dict(tree_bytes(d), stdout=f.read())
+    same = trees["card"] == trees["cpu"]
+    ends = trees["card"]["draft.windows.0.4.50kb.ends.bed"].count(b"\n")
+    log("[17 host tools] telostats on the chr1-chr3 cut: card %.2f s (%d "
+        "telomere-mask launches), CORNETTO_FORCE_CPU=1 %.2f s (%d); stdout "
+        "and all %d files byte-equal: %s; %d telomere regions at contig ends"
+        % (walls["card"], walls["card_launches"], walls["cpu"],
+           walls["cpu_launches"], len(trees["card"]) - 1, same, ends))
+    if not same or walls["card_launches"] != 6 or walls["cpu_launches"] \
+            or not ends:
+        fail("telostats on the cut: the card's output differs from the "
+             "CPU's, or the launches are not one a contig and strand")
+    # where the card run's time goes past telofind (phase 13 times it): a
+    # second FASTA read (telostats reads the lengths apart) and telowin on
+    # the run's telomere file
+    from cornetto_tpu_torch.io.fasta import read_fastx
+    d = os.path.join(root, "telostats_cut_card")
+    t0 = time.perf_counter()
+    n_bp = sum(len(rec.seq) for rec in read_fastx(draft))
+    walls["fasta_read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli_quiet(["telowin", os.path.join(d, "tmp_draft_telostats",
+                                           "draft.telomere"), "99.9", "0.4"],
+                  d + ".telowin", d + ".telowin.err")
+    walls["telowin"] = time.perf_counter() - t0
+    with open(os.path.join(d, "tmp_draft_telostats", "draft.telomere"),
+              "rb") as f:
+        walls["telomere_rows"] = sum(1 for _ in f)
+    log("[17 host tools] telostats split, alone: FASTA read of the %d bp "
+        "%.2f s, telowin on its %d telomere rows %.2f s"
+        % (n_bp, walls["fasta_read"], walls["telomere_rows"],
+           walls["telowin"]))
+    res["telostats_cut"] = walls
+
+    # recreate-panel
+    d = _in_dir(os.path.join(root, "recreate"), {
+        f: os.path.join(pipe, f) for f in ("pasm.fasta",
+                                           "pasm.bp.p_ctg.lowQ.bed")})
+    _cli_in(d, ["recreate-panel", "pasm.fasta"])
+    tree = tree_bytes(d)
+    same = all(tree.get(f) == golden(os.path.join(pgold, "recreate"), f)
+               for f in ("pasm.boringbits.bed", "pasm.boringbits.txt"))
+    log("[17 host tools] recreate-panel pasm.fasta: pasm.boringbits.{bed,"
+        "txt} byte-equal to golden/pipelines/recreate: %s" % same)
+    if not same:
+        fail("recreate-panel differs from its golden")
+
+    # sdust's default backend outside the device DP's range is the host
+    # DP; an explicit --backend device still refuses
+    d = _in_dir(os.path.join(root, "sdust"), {"asm.fasta": asm})
+    for opt in (["-w", "67"], ["-t", "4"]):
+        sdust_dp.launches = 0
+        dflt, _ = _cli_in(d, ["sdust"] + opt + ["asm.fasta"])
+        launches = sdust_dp.launches
+        host, _ = _cli_in(d, ["sdust"] + opt + ["--backend", "host",
+                                                "asm.fasta"])
+        log("[17 host tools] sdust %s (default backend): %d rows, "
+            "byte-equal to --backend host: %s, SDUST launches %d"
+            % (" ".join(opt), dflt.count(b"\n"), dflt == host, launches))
+        if dflt != host or not dflt or launches:
+            fail("sdust %s: the default backend differs from the host DP"
+                 % " ".join(opt))
+    out, err = _cli_in(d, ["sdust", "-w", "67", "--backend", "device",
+                           "asm.fasta"], rc_want=1)
+    log("[17 host tools] sdust -w 67 --backend device: exit 1, %r"
+        % err.decode().strip()[:80])
+    if out or b"W=67 is outside" not in err:
+        fail("sdust -w 67 --backend device did not refuse")
+
+    # the host tools' goldens: (name, argv, inputs, stdout golden, stderr
+    # golden, {written file: golden}, exit code)
+    asmstats_in = {f: os.path.join(gold, f) for f in (
+        "fixasm_fixed.paf", "telo_fixed.bed", "report_fixed.tsv",
+        "order.fasta", "trim_in.paf", "telo.bed")}
+    asmstats = ["asmstats", "fixasm_fixed.paf", "telo_fixed.bed", "-r",
+                "report_fixed.tsv"]
+    fix_in = {"asm.fasta": asm,
+              "asm_to_ref.paf": os.path.join(synth, "asm_to_ref.paf"),
+              "trim_in.paf": os.path.join(gold, "trim_in.paf")}
+    cases = [
+        ("fa2bed", ["fa2bed", "asm.fasta"], {"asm.fasta": asm},
+         "fa2bed.txt", None, {}, 0),
+        ("seq_30k", ["seq", "reads.fastq"],
+         {"reads.fastq": os.path.join(synth, "reads.fastq")},
+         "seq_30k.txt", "seq_30k.stderr", {}, 0),
+        ("seq_1k", ["seq", "-m", "1000", "reads.fastq"],
+         {"reads.fastq": os.path.join(synth, "reads.fastq")},
+         "seq_1k.txt", "seq_1k.stderr", {}, 0),
+        ("telocontigs", ["telocontigs", "asm.fasta", "telo.bed"],
+         {"asm.fasta": asm, "telo.bed": os.path.join(gold, "telo.bed")},
+         "telocontigs.txt", None, {}, 0),
+        ("nx", ["nx", "asm.fasta"], {"asm.fasta": asm}, "nx.txt", None, {},
+         0),
+        ("ngx", ["nx", "-g", "200K", "asm.fasta"], {"asm.fasta": asm},
+         "ngx.txt", None, {}, 0),
+        ("report", ["report", "asm.fasta", "asm.fasta"], {"asm.fasta": asm},
+         "report.txt", None, {}, 0),
+        ("asmstats", asmstats, asmstats_in, "asmstats.txt", None, {}, 0),
+        ("asmstats_human1", asmstats + ["-s", "human1"], asmstats_in,
+         "asmstats_human1.txt", None, {}, 0),
+        ("asmstats_human2", asmstats + ["-s", "human2"], asmstats_in,
+         "asmstats_human2.txt", None, {}, 0),
+        ("asmstats_fastaorder", asmstats + ["-s", "order.fasta"],
+         asmstats_in, "asmstats_fastaorder.txt", None, {}, 0),
+        # the reference stops mid-report here: the same partial output
+        ("asmstats_trim", ["asmstats", "trim_in.paf", "telo.bed", "-r",
+                           "report_fixed.tsv", "--trim-pat-mat"],
+         asmstats_in, "asmstats_trim.txt", None, {}, 1),
+        ("fixasm", ["fixasm", "asm.fasta", "asm_to_ref.paf", "-m",
+                    "missing.txt", "-r", "report.tsv", "-w", "fixed.paf"],
+         fix_in, "fixasm_fixed.fasta", "fixasm.stderr",
+         {"missing.txt": "fixasm_missing.txt",
+          "report.tsv": "fixasm_report.tsv",
+          "fixed.paf": "fixasm_fixed.paf"}, 0),
+        ("fixasm_trim", ["fixasm", "asm.fasta", "trim_in.paf", "-r",
+                         "r.tsv", "--trim-pat-mat"], fix_in,
+         "trim_fixed.fasta", None, {"r.tsv": "trim_report.tsv"}, 0)]
+    for name, argv, inputs, gout, gerr, gfiles, rc in cases:
+        d = _in_dir(os.path.join(root, name), inputs)
+        out, err = _cli_in(d, argv, rc)
+        want = golden(gold, gout)
+        if name == "report":
+            # each row starts with the assembly's path as given
+            want = re.sub(rb"(?m)^[^#\t][^\t]*\t", b"asm.fasta\t", want)
+        same = out == want and (gerr is None or err == golden(gold, gerr)) \
+            and tree_bytes(d) == {k: golden(gold, v) for k, v in gfiles.items()}
+        log("[17 host tools] %s: byte-equal to golden/%s%s%s: %s"
+            % (" ".join(argv), gout, " and " + gerr if gerr else "",
+               "".join(" and " + v for v in gfiles.values()), same))
+        if not same:
+            fail("%s differs from its golden" % name)
+
+    # depth on example.bam over DEPTH_REGIONS, against the CIGARs' tally
+    bam_path = os.path.join(HERE, "test_data", "example.bam")
+    alns = [a for a in BamFile(bam_path).alignments()
+            if not (a.flag & 0x704)]
+    with open(os.path.join(root, "regions.bed"), "w") as f:
+        f.write("".join("%s\t%d\t%d\n" % r for r in DEPTH_REGIONS))
+    bam_in = {"example.bam": bam_path,
+              "example.bam.bai": bam_path + ".bai",
+              "regions.bed": os.path.join(root, "regions.bed")}
+    n_rows = sum(e - b for _, b, e in DEPTH_REGIONS)
+    for opts, ops in (([], (0, 7, 8)), (["-g"], (0, 7, 8)),
+                      (["-J"], (0, 2, 7, 8)), (["-Q", "61"], ())):
+        d = _in_dir(os.path.join(root, "depth" + "".join(opts)), bam_in)
+        out, _ = _cli_in(d, ["depth", "-b", "regions.bed"] + opts
+                         + ["example.bam"])
+        rows = _depth_rows(out)
+        want = sum(ln for a in alns for op, ln in a.cigar if op in ops
+                   and a.mapq >= (61 if "-Q" in opts else 0))
+        log("[17 host tools] %s: %d rows, total depth %d, the kept reads' "
+            "CIGARs give %d" % (" ".join(["depth", "-b", "regions.bed"] + opts
+                                         + ["example.bam"]), len(rows),
+                                sum(rows), want))
+        if len(rows) != n_rows or sum(rows) != want:
+            fail("depth %s disagrees with the CIGARs" % " ".join(opts))
+        if not opts:
+            base = np.array(rows)
+    # bammerge of example.bam with itself doubles the depth everywhere
+    for no_index in (False, True):
+        tag = "_noindex" if no_index else ""
+        d = _in_dir(os.path.join(root, "bammerge" + tag), bam_in)
+        _cli_in(d, ["bammerge"] + (["--no-index"] if no_index else [])
+                + ["merged.bam", "example.bam", "example.bam"])
+        out, _ = _cli_in(d, ["depth", "-b", "regions.bed", "merged.bam"])
+        has_bai = os.path.exists(os.path.join(d, "merged.bam.bai"))
+        twice = np.array_equal(np.array(_depth_rows(out)), 2 * base)
+        log("[17 host tools] bammerge%s merged.bam example.bam example.bam: "
+            ".bai written: %s; depth twice the input's at all %d "
+            "positions: %s" % (" --no-index" if no_index else "", has_bai,
+                               n_rows, twice))
+        if not twice or has_bai == no_index:
+            fail("bammerge%s: the merged depth is not twice the input's"
+                 % tag)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2924,6 +3222,8 @@ def main():
     lap("15 replay")
     dd = phase_dist(args.seed, work, idx_path, idx2_path, fq, card)
     lap("16 dist")
+    ht = phase_host_tools(args.seed, work, draft)
+    lap("17 host tools")
     log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
         "W=%d S=%d: %.4f ms, plain %.4f ms, x.unfold(...).sum(...) %.4f ms "
         "(%s)" % (WIN, INC, ws_times["ms"], ws_times["plain_ms"],
@@ -2948,6 +3248,11 @@ def main():
            an_stats.get("heavy_ms", 0.0), an_stats.get("heavy_rows", 0),
            an_secs["telofind"], an_secs["telofind_host"],
            an_secs["sdust_slice_device"], an_secs["sdust_slice_host"], card))
+    ts = ht["telostats_cut"]
+    log("[7 numbers] telostats, chr1-chr3 689 Mbp: on the card %.2f s, "
+        "CORNETTO_FORCE_CPU=1 %.2f s; alone, a FASTA read %.2f s and "
+        "telowin %.2f s (%s)" % (ts["card"], ts["cpu"], ts["fasta_read"],
+                                 ts["telowin"], card))
     tf = tf_split["device"]
     log("[7 numbers] telofind on the device, split run: %.2f s = %s (%s)"
         % (tf["wall"], " + ".join("%s %.3f" % (k, tf.get(k, 0.0))

@@ -41,6 +41,15 @@ def gnu_sort_bed(rows: Sequence[Row]) -> List[Row]:
     return sorted(rows, key=key)
 
 
+def gnu_sort_len_desc(rows: Sequence[Row]) -> List[Row]:
+    """GNU `sort -k3,3nr`: numeric third column descending, last-resort
+    whole-line ascending byte compare."""
+    def key(r):
+        line = ("%s\t%d\t%d\n" % r).encode()
+        return (-r[2], line)
+    return sorted(rows, key=key)
+
+
 def merge(rows: Sequence[Row], d: int = 0) -> List[Row]:
     """`bedtools merge -d N` on pre-sorted input: combine features whose gap
     is <= d on the same chrom.  Vectorised with a boundary scan."""

@@ -22,6 +22,9 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+_EOF_MARKER = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
+
 
 class BgzfFile:
     """Random-access BGZF reader over an in-memory (or mmap'd) buffer."""
@@ -250,6 +253,103 @@ class BgzfStreamReader:
             self._futs.clear()
             self._ex.shutdown(wait=False, cancel_futures=True)
             self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ---------------------------------------------------------------------------
+# BGZF writer
+# ---------------------------------------------------------------------------
+
+# htslib's block payload cap: 65280 uncompressed bytes always deflate to
+# under the 65536-byte BSIZE limit even for incompressible data
+_MAX_BLOCK = 65280
+
+
+def _deflate_block(payload: bytes, level: int) -> bytes:
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    body = co.compress(payload) + co.flush()
+    bsize = 18 + len(body) + 8
+    if bsize > 65536:
+        raise ValueError("BGZF block overflow (%d bytes)" % bsize)
+    return b"".join((
+        b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff",      # gzip hdr, FEXTRA
+        struct.pack("<H", 6),                              # XLEN
+        b"BC", struct.pack("<H", 2),                       # BC subfield
+        struct.pack("<H", bsize - 1),                      # BSIZE-1
+        body,
+        struct.pack("<II", zlib.crc32(payload), len(payload))))
+
+
+class BgzfWriter:
+    """Streaming BGZF writer with pipelined parallel deflate.
+
+    Payloads are cut into <=65280-byte blocks; each block compresses
+    independently (zlib releases the GIL), so a thread pool overlaps
+    compression of queued blocks with the caller producing more — the
+    write-side twin of BgzfFile's block-parallel inflate.  Tracks virtual
+    offsets (`tell()`) so callers (the BAI builder) can index what they
+    write without re-reading it.
+    """
+
+    def __init__(self, path: str, nthreads: int = None, level: int = 6):
+        import os
+        self.path = path
+        self._f = open(path, "wb")
+        self._level = level
+        self._nthreads = nthreads or min(os.cpu_count() or 1, 8)
+        self._ex = ThreadPoolExecutor(max_workers=self._nthreads)
+        self._pending: List = []          # futures in write order
+        self._max_pending = 4 * self._nthreads
+        self._buf = bytearray()
+        self._coff = 0                    # compressed bytes written+queued?
+        self._closed = False
+
+    def tell(self) -> int:
+        """Virtual offset of the NEXT byte written: requires draining the
+        compression pipeline to know the compressed offset."""
+        self._drain()
+        return (self._coff << 16) | len(self._buf)
+
+    def _drain(self) -> None:
+        for fut in self._pending:
+            blk = fut.result()
+            self._f.write(blk)
+            self._coff += len(blk)
+        self._pending = []
+
+    def _submit(self, payload: bytes) -> None:
+        self._pending.append(
+            self._ex.submit(_deflate_block, payload, self._level))
+        if len(self._pending) >= self._max_pending:
+            self._drain()
+
+    def write(self, data) -> None:
+        self._buf += data
+        while len(self._buf) >= _MAX_BLOCK:
+            self._submit(bytes(self._buf[:_MAX_BLOCK]))
+            del self._buf[:_MAX_BLOCK]
+
+    def flush(self) -> None:
+        """Force out a (possibly short) block at the current boundary."""
+        if self._buf:
+            self._submit(bytes(self._buf))
+            self._buf.clear()
+        self._drain()
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self.flush()
+        self._f.write(_EOF_MARKER)
+        self._f.close()
+        self._ex.shutdown()
+        self._closed = True
 
     def __enter__(self):
         return self

@@ -155,3 +155,9 @@ def _split_ws(hdr: str):
         if ch in " \t":
             return hdr[:i], hdr[i + 1:]
     return hdr, None
+
+
+def write_fasta_record(out, name: str, seq: str) -> None:
+    """Single-line sequence output, as the reference's fixasm writes
+    (reference: src/fixasm.c:395)."""
+    out.write(">%s\n%s\n" % (name, seq))

@@ -1,15 +1,17 @@
 """sdust on the port: counterpart of cornetto_tpu/tools/sdust.py.
 
-``--backend device`` (the default) runs the SDUST DP of each contig on the
-port's device (``kernels.sdust.sdust_device``: the CUDA kernel on a card,
-its plain PyTorch version under CORNETTO_FORCE_CPU=1, an error with
-neither); ``--backend host`` runs the native sequential DP
-(``native.sdust``) on a thread pool, as the JAX package's host backend
-does.  The device DP
-takes 3 <= W <= 66 (its ring holds 64 words) and T >= 5 (below, the JAX
-kernel's DP departs from the sequential one): any other -w or -t exits 1
-with the limit, it does not switch to the host.  Rows are byte-identical
-to the reference C tool's.
+``--backend device`` runs the SDUST DP of each contig on the port's device
+(``kernels.sdust.sdust_device``: the CUDA kernel on a card, its plain
+PyTorch version under CORNETTO_FORCE_CPU=1, an error with neither);
+``--backend host`` runs the native sequential DP (``native.sdust``) on a
+thread pool, as the JAX package's host backend does.  The device DP takes
+3 <= W <= 66 (its ring holds 64 words) and T >= 5 (below, the JAX kernel's
+DP departs from the sequential one).  With no ``--backend`` the device runs
+when (W, T) lie in that range and the host DP otherwise, so every -w / -t
+the JAX CLI takes prints its rows; an explicit ``--backend device`` outside
+the range exits 1 with the limit.  This routes on the parameters alone: no
+build or launch error is caught.  Rows are byte-identical to the reference
+C tool's.
 """
 
 import os
@@ -21,6 +23,7 @@ from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.io.fasta import read_fastx
 from cornetto_tpu_torch.kernels.sdust import check_params, sdust_device
 from cornetto_tpu_torch.native.sdust import sdust
+from cornetto_tpu_torch.utils import logging as log
 from cornetto_tpu_torch.utils.parsing import c_atoi
 
 CORE = 2048      # chunk core of the device DP (sdust_pallas' default)
@@ -75,7 +78,7 @@ def _run_host(fasta_path: str, T: int, W: int, out, workers) -> None:
 
 def main(argv) -> int:
     W, T = 64, 20
-    backend = "device"
+    backend = None
     args = []
     i = 0
     while i < len(argv):
@@ -97,14 +100,19 @@ def main(argv) -> int:
         sys.stderr.write("Usage: sdust [-w %d] [-t %d] "
                          "[--backend host|device] <in.fa>\n" % (W, T))
         return 1
-    if backend not in ("host", "device"):
+    if backend not in (None, "host", "device"):
         sys.stderr.write("Error: --backend must be host or device\n")
         return 1
-    if backend == "device":
+    if backend != "host":
         try:
             check_params(W, T)
+            backend = "device"
         except ValueError as e:
-            sys.stderr.write("Error: %s\n" % e)
-            return 1
+            if backend == "device":
+                sys.stderr.write("Error: %s\n" % e)
+                return 1
+            log.verbose("sdust: W=%d, T=%d lie outside the device DP's "
+                        "range; the host DP runs" % (W, T))
+            backend = "host"
     run(args[0], T=T, W=W, backend=backend)
     return 0

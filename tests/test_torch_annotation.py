@@ -75,9 +75,21 @@ def test_sdust_device_rejects_wide_window_and_low_threshold(cpu, synth):
     rc, out, err = _cli(["sdust", "-t", "4", "--backend", "device",
                          str(synth / "asm.fasta")])
     assert rc == 1 and out == "" and "T=4 is below 5" in err
-    # the default backend is the device one, with the same limits
-    rc, out, err = _cli(["sdust", "-w", "67", str(synth / "asm.fasta")])
-    assert rc == 1 and out == "" and "W=67 is outside 3..66" in err
+    # outside the device DP's range the default backend is the host DP:
+    # its rows are the port's --backend host rows and the JAX CLI's
+    from cornetto_tpu.cli import main as jax_main
+    for args, n_rows in ((["-w", "67"], 24), (["-t", "4"], 1358)):
+        rc, out, err = _cli(["sdust"] + args + [str(synth / "asm.fasta")])
+        assert rc == 0 and out.count("\n") == n_rows
+        rc, host, _ = _cli(["sdust"] + args + ["--backend", "host",
+                                               str(synth / "asm.fasta")])
+        assert rc == 0 and out == host
+        jax_out = io.StringIO()
+        with contextlib.redirect_stdout(jax_out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert jax_main(["cornetto", "sdust"] + args
+                            + [str(synth / "asm.fasta")]) == 0
+        assert out == jax_out.getvalue()
     # the host DP takes any window and threshold
     rc, out, _ = _cli(["sdust", "-w", "67", "-t", "4", "--backend", "host",
                        str(synth / "asm.fasta")])
@@ -263,7 +275,11 @@ def test_usage_lists_annotation_commands(capsys):
     for cmd in ("sdust", "telofind", "telowin", "telobreaks"):
         assert cmd in err
         assert cmd not in cli.JAX_ONLY
+    # telostats is ported: with no assembly it prints its usage
     rc, _, err = _cli(["telostats"])
+    assert rc == 1 and "Usage: cornetto telostats" in err
+    assert "not yet ported" not in err
+    rc, _, err = _cli(["minidot"])
     assert rc == 1 and "not yet ported" in err
 
 

@@ -4,7 +4,9 @@ shared ``.npz`` index format (an index built by either package loads in
 the other), the read packing, the FASTA / BED / bedgraph / BAM readers, the
 SDUST chunk plan and reassembly, the native SDUST DP, the telomere walks,
 the window statistics, the host tools and the read-until chunk engines'
-state machines and replay (over a numpy stub engine).  Integers and bytes
+state machines and replay (over a numpy stub engine), the natural sort,
+the PAF readers, the FASTA record writer and the BAM writer with its BAI
+and region depth.  Integers and bytes
 throughout;
 tolerance: exact equality."""
 
@@ -18,6 +20,7 @@ from cornetto_tpu.dist import checkpoint as jax_ckpt
 from cornetto_tpu.io import bam as jax_bam
 from cornetto_tpu.io import bed as jax_bed
 from cornetto_tpu.io import fasta as jax_fasta
+from cornetto_tpu.io import paf as jax_paf
 from cornetto_tpu.kernels import minimizer as jax_mz
 from cornetto_tpu.kernels import sdust_chunked as jax_chunked
 from cornetto_tpu.kernels.pallas_telo import (_steps_for as jax_steps_for,
@@ -32,8 +35,9 @@ from cornetto_tpu.native.sdust import sdust as jax_native_sdust
 from cornetto_tpu.tools import telobreaks as jax_telobreaks
 from cornetto_tpu.tools import telowin as jax_telowin
 from cornetto_tpu.tools.telofind import scan_runs as jax_scan_runs
+from cornetto_tpu.utils import natsort as jax_natsort
 from cornetto_tpu_torch.dist import checkpoint as ckpt
-from cornetto_tpu_torch.io import bam, bed, fasta
+from cornetto_tpu_torch.io import bam, bed, fasta, paf
 from cornetto_tpu_torch.kernels import minimizer as mz
 from cornetto_tpu_torch.kernels import sdust_chunked as chunked
 from cornetto_tpu_torch.kernels.sdust_core import _NT4
@@ -45,6 +49,7 @@ from cornetto_tpu_torch.livefish.decide import unpack_fused
 from cornetto_tpu_torch.native.sdust import sdust as native_sdust
 from cornetto_tpu_torch.tools import telobreaks, telowin
 from cornetto_tpu_torch.tools.telofind import scan_runs
+from cornetto_tpu_torch.utils import natsort
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ACGT = np.array(list("ACGT"))
@@ -187,6 +192,98 @@ def test_bam_alignments_and_depth_equal():
                 np.array_equal(da[r], db[r])
         assert sum(int(da[r].sum()) for r in refs)
 
+
+def test_natsort_keys_equal():
+    """strnum_key and mixed_key (asmstats' chromosome orders) on seeded
+    names with digits, leading zeros and suffixes: the same order, and the
+    same sign on every pair."""
+    rng = np.random.default_rng(12)
+    stems = ["chr", "ctg", "h1tig", "chrX_", "scaffold_", "", "A", "a"]
+    names = ["%s%s%s" % (stems[rng.integers(0, len(stems))],
+                         "0" * int(rng.integers(0, 3)),
+                         int(rng.integers(0, 300)))
+             + ["", "_MATERNAL", "_PATERNAL", "b", ".1"][rng.integers(0, 5)]
+             for _ in range(300)]
+    for key in ("strnum_key", "mixed_key"):
+        assert sorted(names, key=getattr(natsort, key)) == \
+            sorted(names, key=getattr(jax_natsort, key)), key
+    for a, b in zip(names, names[::-1]):
+        for cmp in ("strnum_cmp", "mixed_numcompare"):
+            assert np.sign(getattr(natsort, cmp)(a, b)) == \
+                np.sign(getattr(jax_natsort, cmp)(a, b)), (cmp, a, b)
+
+
+@pytest.mark.parametrize("path", ["test_data/golden/fixasm_fixed.paf",
+                                  "test_data/golden/trim_in.paf",
+                                  "test_data/synth/asm_to_ref.paf"])
+def test_paf_readers_equal(path):
+    import dataclasses
+    for fn in ("read_paf", "read_paf_minidot"):
+        got = [dataclasses.astuple(r)
+               for r in getattr(paf, fn)(str(ROOT / path))]
+        want = [dataclasses.astuple(r)
+                for r in getattr(jax_paf, fn)(str(ROOT / path))]
+        assert got == want and got, fn
+
+
+def test_write_fasta_record_equal():
+    a, b = io.StringIO(), io.StringIO()
+    for name, seq in (("ctg1", "ACGT" * 30), ("x y", ""), ("z", "N")):
+        fasta.write_fasta_record(a, name, seq)
+        jax_fasta.write_fasta_record(b, name, seq)
+    assert a.getvalue() == b.getvalue()
+
+
+def test_reg2bin_equal():
+    rng = np.random.default_rng(13)
+    beg = rng.integers(0, 1 << 29, 2000)
+    span = 1 << rng.integers(0, 28, 2000)
+    for x, n in zip(beg.tolist(), (span + rng.integers(1, 100, 2000)).tolist()):
+        assert bam.reg2bin(x, x + n) == jax_bam.reg2bin(x, x + n)
+
+
+def _write_bam(mod, path, rng_seed):
+    rng = np.random.default_rng(rng_seed)
+    with mod.BamWriter(str(path), ["c1", "c2"], [60_000, 30_000],
+                       header_text="@HD\tVN:1.6\tSO:coordinate\n",
+                       build_index=True) as w:
+        for ref in (0, 1):
+            for i, pos in enumerate(sorted(rng.integers(0, 25_000,
+                                                        200).tolist())):
+                m1, d, m2 = (int(v) for v in rng.integers(1, 300, 3))
+                w.write_record("r%d_%d" % (ref, i), int(rng.choice([0, 16])),
+                               ref, pos, int(rng.integers(0, 61)),
+                               [("M", m1), ("D", d), ("M", m2)],
+                               seq="".join(ACGT[rng.integers(0, 4, m1 + m2)]))
+
+
+def test_bam_writer_roundtrip_and_depth_region_equal(tmp_path):
+    """BamWriter (+ its BAI) writes the same bytes in both packages; each
+    reader reads the other's file back; depth_region over the written BAM
+    and example.bam agrees."""
+    _write_bam(bam, tmp_path / "p.bam", 14)
+    _write_bam(jax_bam, tmp_path / "j.bam", 14)
+    for suf in ("", ".bai"):
+        assert (tmp_path / ("p.bam" + suf)).read_bytes() == \
+            (tmp_path / ("j.bam" + suf)).read_bytes()
+    a, b = bam.BamFile(str(tmp_path / "j.bam")), \
+        jax_bam.BamFile(str(tmp_path / "p.bam"))
+    assert a.has_index() and b.has_index()
+    fields = ("ref_id", "pos", "flag", "mapq", "cigar")
+    assert [tuple(getattr(x, f) for f in fields) for x in a.alignments()] \
+        == [tuple(getattr(x, f) for f in fields) for x in b.alignments()]
+    ex = str(ROOT / "test_data" / "example.bam")
+    cases = [(a, b, "c1", 0, 60_000), (a, b, "c2", 1000, 2500),
+             (bam.BamFile(ex), jax_bam.BamFile(ex), "chr22", 19_979_000,
+              20_040_000)]
+    for x, y, ref, beg, end in cases:
+        for q, dels in ((0, False), (30, False), (0, True)):
+            got = bam.depth_region(x, ref, beg, end, min_mapq=q,
+                                   include_dels=dels)
+            want = jax_bam.depth_region(y, ref, beg, end, min_mapq=q,
+                                        include_dels=dels)
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+            assert got.sum() > 0
 
 def _sdust_inputs():
     rng = np.random.default_rng(6)

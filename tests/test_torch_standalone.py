@@ -64,6 +64,13 @@ def test_sources_listed():
                  "utils/profiling.py"):
         assert "cornetto_tpu_torch/" + path in SOURCES
     assert "tests/_torch_dist_worker.py" in SOURCES
+    for path in ("tools/fa2bed.py", "tools/seq.py", "tools/telocontigs.py",
+                 "tools/depth.py", "tools/asmstats.py", "tools/nx.py",
+                 "tools/report.py", "tools/fixasm.py",
+                 "pipelines/asmstats_sh.py", "pipelines/recreate_cornetto.py",
+                 "pipelines/telostats.py", "tools/bigenough.py",
+                 "utils/natsort.py", "io/paf.py", "io/bam.py"):
+        assert "cornetto_tpu_torch/" + path in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)
@@ -104,8 +111,11 @@ def test_native_sources_are_the_ports_own():
 def test_cli_entry_points_import_neither_jax_nor_the_jax_package(tmp_path,
                                                                  synth, gold):
     """livefish index and toml, boringbits, telowin, sdust and telofind on
-    their host backends, and --version, through the port's CLI in a fresh
-    interpreter (the test process itself has both loaded)."""
+    their host backends, the host subcommands (telostats on the plain mask,
+    bigenough, recreate-panel, fa2bed, seq, telocontigs, depth, bammerge,
+    asmstats, nx, report, fixasm and asmstats-pipeline) and --version,
+    through the port's CLI in a fresh interpreter (the test process itself
+    has both loaded)."""
     import numpy as np
     rng = np.random.default_rng(11)
     draft = tmp_path / "draft.fa"
@@ -113,11 +123,36 @@ def test_cli_entry_points_import_neither_jax_nor_the_jax_package(tmp_path,
         np.array(list("ACGT"))[rng.integers(0, 4, 20000)])) for i in range(3)))
     bed = tmp_path / "panel.bed"
     bed.write_text("ctg0\t0\t5000\n")
+    (tmp_path / "draft.bp.p_ctg.lowQ.bed").write_text("ctg1\t100\t9000\n")
+    (tmp_path / "regions.bed").write_text("chr22\t19979000\t19990000\n")
+    for suf, src in ((".paf", "fixasm_fixed.paf"),
+                     (".windows.0.4.50kb.ends.bed", "telo_fixed.bed"),
+                     (".report.tsv", "report_fixed.tsv")):
+        (tmp_path / ("x" + suf)).symlink_to(gold / src)
+    work = tmp_path / "work"
+    work.mkdir()
     code = (
-        "import contextlib, io, sys\n"
+        "import contextlib, io, os, sys\n"
         "from cornetto_tpu_torch.cli import main\n"
-        "draft, bed, idx, synth, gold = sys.argv[1:]\n"
+        "draft, bed, idx, synth, gold = sys.argv[1:6]\n"
+        "tmp, fixtures = sys.argv[6:]\n"
+        "os.chdir(tmp + '/work')\n"
+        "asm, bam = synth + '/asm.fasta', synth + '/../example.bam'\n"
+        "asmstats = [gold + '/fixasm_fixed.paf', gold + '/telo_fixed.bed',"
+        " '-r', gold + '/report_fixed.tsv']\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    for argv in (['telostats', asm],"
+        " ['bigenough', fixtures + '/chroms.bed',"
+        " fixtures + '/in.boringbits.bed'],"
+        " ['recreate-panel', draft], ['fa2bed', asm],"
+        " ['seq', synth + '/reads.fastq'],"
+        " ['telocontigs', asm, gold + '/telo.bed'],"
+        " ['depth', '-b', tmp + '/regions.bed', bam],"
+        " ['bammerge', tmp + '/m.bam', bam, bam],"
+        " ['asmstats'] + asmstats, ['nx', asm], ['report', asm],"
+        " ['fixasm', asm, synth + '/asm_to_ref.paf'],"
+        " ['asmstats-pipeline', tmp + '/x']):\n"
+        "        assert main(['cornetto'] + argv) == 0, argv\n"
         "    assert main(['cornetto', 'livefish', 'index', draft, '-o', idx,"
         " '-p', bed]) == 0\n"
         "    assert main(['cornetto', 'livefish', 'toml', 'ref.mmi',"
@@ -138,7 +173,11 @@ def test_cli_entry_points_import_neither_jax_nor_the_jax_package(tmp_path,
     env = dict(os.environ, CORNETTO_FORCE_CPU="1", OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", code, str(draft), str(bed),
-         str(tmp_path / "idx"), str(synth), str(gold)], cwd=str(ROOT),
+         str(tmp_path / "idx"), str(synth), str(gold), str(tmp_path),
+         str(ROOT / "test_data" / "bigenough")], cwd=str(ROOT),
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert (tmp_path / "idx.npz").exists()
+    assert (tmp_path / "m.bam.bai").exists()
+    assert (work / "draft.boringbits.bed").exists()
+    assert (work / "asm.windows.0.4.50kb.ends.bed").exists()

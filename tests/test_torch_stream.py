@@ -153,10 +153,10 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch, capsys):
     assert resolve_device() == torch.device("cpu")
 
 
-@pytest.mark.parametrize("argv", [["bigenough", "x.fa"],
-                                  ["telostats", "x.fa"],
-                                  ["recreate-panel", "x.fa"],
-                                  ["telocontigs", "x.fa"]])
+@pytest.mark.parametrize("argv", [["minidot", "x.paf"],
+                                  ["minidotplot", "x.fa"],
+                                  ["hapnetto", "x"],
+                                  ["gfa2fa", "x.gfa"]])
 def test_unported_commands_exit_1(argv, capsys):
     assert torch_cli.main(["cornetto"] + argv) == 1
     assert "not yet ported to cornetto_tpu_torch" in capsys.readouterr().err
