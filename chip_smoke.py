@@ -115,7 +115,11 @@ checkout.  It:
    SingleChipEngine, plus an sp scan of chr1's length held to the
    single-device window stats; the votes and policy kernels against their
    plain versions at C = 1, 87 and past the shared-memory limit, timed by
-   graph replay; the sharded step's per-stage split from CUDA events;
+   graph replay; the sharded step's per-stage split from CUDA events; each
+   gloo rank's (1, 2) engine state (its 2.15 GB table shard and the panel)
+   through dist.checkpoint.save_sharded and load_sharded into fresh
+   tensors on the card, timed, and the reloaded engine's rows held to the
+   first run's (reported with phase 18);
 17. the host subcommands through `cornetto_tpu_torch.cli`: `telostats` on
    test_data/gen_synth_pipe.py's assembly and on test_data/synth, each
    byte-equal to test_data/golden/pipelines/{telo,telosmall} with
@@ -127,7 +131,26 @@ checkout.  It:
    report, asmstats and fixasm against their goldens; `depth` over BED
    regions of test_data/example.bam against its reads' CIGARs, and a
    `bammerge` of it with itself (with and without its .bai) whose depth
-   is twice the input's.
+   is twice the input's;
+18. eval and recovery: `minidot` on its three EPS goldens; `create-panel`
+   (the card's window sums) and `recreate-panel`, each followed by
+   `hapnetto` with gen_synth_pipe.py's haplotype PAFs, byte-equal to
+   test_data/golden/pipelines/{create,recreate} (pasm_dip.* included);
+   `minidot -f 2 --png` on a PAF of phase 13's chr1-chr3 cut built by
+   construction (5 Mb blocks, one contig on the reverse strand) and
+   `gfa2fa` on a GFA of the cut's S-lines (byte-equal to the cut's
+   FASTA); `flow-eval` on the cut with command templates standing for
+   minimap2 (writing that PAF), quast, compleasm and yak (minidotplot,
+   telostats with its mask launches and asmstats run for real), every
+   file byte-equal to a CORNETTO_FORCE_CPU=1 run's; `refine` over two
+   iterations of contigs past its 40 Mbp minimum with telomere arrays
+   planted at their ends (the ends from `telostats` on the card), in a
+   process of its own for its peak RSS; the crash-injected stream
+   (tests/_torch_ckpt_worker.py) under NCCL at (1, 1) on the human-scale
+   index in 4096-read batches: the uninterrupted oracle and a life killed
+   at each of mid_part:1, after_part:1 and after_ckpt:2, then each
+   resumed, its decisions.tsv and tallies byte-identical to the oracle's,
+   the oracle's rows equal to SingleChipEngine's on the same batches.
 
 Phase 2 builds the six kernel sources in parallel; phases 3, 11 and 16
 hold each kernel bit-equal to its plain PyTorch version on the card.  Imports
@@ -2542,6 +2565,20 @@ def phase_dist(seed: int, work: str, idx_path: str, idx2_path: str,
     if bad:
         fail("the two-process layouts differ from their oracles in %d "
              "outputs" % bad)
+    ckpt = {k: max(float(res[r]["ckpt/" + k]) for r in range(DIST_RANKS))
+            for k in ("save_s", "load_s")}
+    ckpt["bytes"] = int(res[0]["ckpt/bytes"])
+    ok = all(bool(res[r]["ckpt/" + k]) for r in range(DIST_RANKS)
+             for k in ("same", "rows"))
+    log("[16 dist] (phase 18's recovery check) save_sharded of each gloo "
+        "rank's (1, 2) engine state (%d bytes on rank 0: its table shard "
+        "and the panel) %.2f s, load_sharded into fresh tensors on the card "
+        "%.2f s (the slower rank's); state bit-equal and the reloaded "
+        "engine's rows equal to the first run's on both ranks: %s (%s)"
+        % (ckpt["bytes"], ckpt["save_s"], ckpt["load_s"], ok, card))
+    if not ok:
+        fail("save_sharded / load_sharded did not give the (1, 2) engine "
+             "its state back")
     depth = chr1_depth(seed)
     t0 = time.perf_counter()
     st0, end0, m0, _ = window_stats(depth, depth, WIN, INC)
@@ -2583,7 +2620,50 @@ def phase_dist(seed: int, work: str, idx_path: str, idx2_path: str,
             % (name, t["ms"], b_ms, b_by, t["bytes"], 100 * b_ms / t["ms"],
                t["plain_ms"], card))
     return dict(launches=launches, err=err, votes=tv, policy=tp,
-                timing=timing)
+                timing=timing, ckpt=ckpt)
+
+
+def sharded_round_trip(eng, batches, work: str, out):
+    """On every gloo rank: the (1, 2) engine's state (this rank's table
+    shard and the panel) through dist.checkpoint.save_sharded and
+    load_sharded into -1-filled tensors on the card, timed; the engine on
+    the reloaded state decides the batches again.  Returns the npz
+    entries: seconds, bytes, and whether the state and the rows came back
+    bit for bit (against ``out``'s first decisions)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from cornetto_tpu_torch.dist.checkpoint import load_sharded, save_sharded
+    path = os.path.join(work, "sharded_ep2")
+    tree = {"btable": eng.state.btable, "panel": eng.state.panel}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    save_sharded(path, tree)
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    fresh = {k: torch.full_like(v, -1) for k, v in tree.items()}
+    dist.barrier()
+    t0 = time.perf_counter()
+    back = load_sharded(path, fresh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    load_s = time.perf_counter() - t0
+    same = all(back[k] is fresh[k] and torch.equal(back[k], v)
+               for k, v in tree.items())
+    nbytes = sum(v.numel() * v.element_size() for v in tree.values())
+    del tree
+    eng.state = dataclasses.replace(eng.state, **back)
+    rows = all(np.array_equal(o.cpu().numpy(), out["ep2/%d/%d" % (i, j)])
+               for i, b in enumerate(batches)
+               for j, o in enumerate(eng.decide_packed(
+                   b[0], b[1], READ_LEN, lengths=b[2])))
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(path)
+    return {"ckpt/save_s": save_s, "ckpt/load_s": load_s,
+            "ckpt/bytes": nbytes, "ckpt/same": same, "ckpt/rows": rows}
 
 
 def dist_worker(args):
@@ -2628,6 +2708,8 @@ def dist_worker(args):
             for j, o in enumerate(eng.decide_packed(b[0], b[1], READ_LEN,
                                                     lengths=b[2])):
                 out["%s/%d/%d" % (name, i, j)] = o.cpu().numpy()
+        if name == "ep2":
+            out.update(sharded_round_trip(eng, batches, work, out))
         _, split = split_ms(eng, eng.upload(*batches[0]), 10)
         for k, ms in split.items():
             out["split/%s/%s" % (name, k)] = ms
@@ -2725,17 +2807,31 @@ def _cli_in(path: str, argv, rc_want: int = 0):
 
 
 def _pipe_inputs(path: str) -> str:
-    """test_data/gen_synth_pipe.py's assembly and lowQ BED (the inputs of
-    the telo and recreate goldens; the bedgraphs are not needed here)."""
+    """test_data/gen_synth_pipe.py's inputs (the telo, create and recreate
+    goldens'): the assembly, lowQ BED, haplotype PAFs and 1-bp bedgraphs,
+    these written here as the generator's DataFrame.to_csv writes them
+    (the card's machine has no pandas)."""
     import numpy as np
     sys.path.insert(0, os.path.join(HERE, "test_data"))
     import gen_synth_pipe as gsp
-    if not os.path.exists(os.path.join(path, ".done-" + gsp.VERSION)):
+    stamp = os.path.join(path, ".done-" + gsp.VERSION)
+    if not os.path.exists(stamp):
         os.makedirs(path, exist_ok=True)
         gsp.OUT = path
-        gsp.gen_fasta(np.random.default_rng(20260819))   # as gsp.ensure()
+        rng = np.random.default_rng(20260819)            # as gsp.ensure()
+        seqs = gsp.gen_fasta(rng)
+        with open(os.path.join(path, "pasm.cov-total.bg"), "w") as ft, \
+                open(os.path.join(path, "pasm.cov-mq20.bg"), "w") as fm:
+            for name, ln in gsp.CONTIGS:
+                depth, mq = gsp._depth_profile(rng, name, ln)
+                head = ["%s\t%d\t%d\t" % (name, i, i + 1)
+                        for i in range(ln)]
+                for f, col in ((ft, depth), (fm, mq)):
+                    f.write("".join([h + "%d\n" % v for h, v in
+                                     zip(head, col.tolist())]))
         gsp.gen_lowq(None)
-        open(os.path.join(path, ".done-" + gsp.VERSION), "w").close()
+        gsp.gen_haps(seqs)
+        open(stamp, "w").close()
     return path
 
 
@@ -2976,6 +3072,401 @@ def phase_host_tools(seed: int, work: str, draft: str):
     return res
 
 
+# ------------------------------------------------------- eval and recovery
+
+# refine's draft: two iterations, each with a contig past
+# refine.MIN_CONTIG_LEN (40 Mbp) with (CCCTAA)n / (TTAGGG)n arrays at both
+# ends (the second a copy of the first: contained), a contig with one
+# array, a fragment of the first and a new short one; (name, length,
+# arrays at the start / end, source): a source names the contig (and its
+# span) that the record copies.  refine's host minimizers cost ~0.35 s a
+# Mbp (on a CPU core), 86 Mbp of them here
+REFINE_ITERS = [
+    [("tA", 40_500_000, True, True, None),
+     ("tX", 5_000_000, True, False, None)],
+    [("tA2", 40_500_000, True, True, ("tA", 0, 40_500_000)),
+     ("fragA", 2_000_000, False, False, ("tA", 5_000_000, 7_000_000)),
+     ("tC", 3_000_000, False, False, None)]]
+REFINE_TELO = 10_000
+# the crash-injected stream: 3 full batches and a tail (4 batches); a
+# life's group gives up after CRASH_TIMEOUT_S in a collective
+CRASH_READS = 3 * BATCH + 1000
+CRASH_POINTS = ("mid_part:1", "after_part:1", "after_ckpt:2")
+CRASH_TIMEOUT_S = 300
+PIPE_INPUTS = ("pasm.fasta", "pasm.cov-total.bg", "pasm.cov-mq20.bg",
+               "pasm.bp.p_ctg.lowQ.bed", "pasm_hap1_to_asm.paf",
+               "pasm_hap2_to_asm.paf")
+MINIDOT_GOLDENS = [
+    (["minidot", "-f", "2", "fixasm_fixed.paf"], "minidot.eps"),
+    (["minidot", "asm_to_ref.paf"], "minidot_raw.eps"),
+    (["minidot", "-m", "50", "-i", "0.05", "-s", "500", "-w", "800", "-d",
+      "asm_to_ref.paf"], "minidot_opts.eps")]
+
+
+def cut_paf(path: str, contigs, block: int = 5_000_000) -> int:
+    """A PAF of the cut against itself, built by construction: every
+    contig in 5 Mb blocks onto itself, the second contig's on the reverse
+    strand (so fixasm turns it round).  Returns the rows written."""
+    n_rows = 0
+    with open(path, "w") as f:
+        for i, (name, n) in enumerate(contigs):
+            for qs in range(0, n, block):
+                qe = min(qs + block, n)
+                ts, te = (qs, qe) if i != 1 else (n - qe, n - qs)
+                f.write("%s\t%d\t%d\t%d\t%s\t%s\t%d\t%d\t%d\t%d\t%d\t60"
+                        "\ttp:A:P\n" % (name, n, qs, qe, "-" if i == 1 else
+                                         "+", name, n, ts, te,
+                                         qe - qs - (qe - qs) // 1000,
+                                         qe - qs))
+                n_rows += 1
+    return n_rows
+
+
+def write_refine_draft(path: str, seed: int):
+    """REFINE_ITERS as iter1.fasta and iter2.fasta (reused per seed)."""
+    import numpy as np
+    stamp = os.path.join(path, ".done")
+    fas = [os.path.join(path, "iter%d.fasta" % (i + 1))
+           for i in range(len(REFINE_ITERS))]
+    if os.path.exists(stamp):
+        return fas
+    os.makedirs(path, exist_ok=True)
+    ascii_ = np.frombuffer(b"ACGT", dtype=np.uint8)
+    made = {}
+    for it, fa in zip(REFINE_ITERS, fas):
+        with open(fa, "wb") as f:
+            for j, (name, n, start, end, src) in enumerate(it):
+                if src is None:
+                    text = ascii_[np.random.default_rng(
+                        [seed, 18, len(made)]).integers(0, 4, size=n,
+                                                        dtype=np.uint8)]
+                    if start:
+                        text[:REFINE_TELO] = _tile("CCCTAA", REFINE_TELO)
+                    if end:
+                        text[n - REFINE_TELO:] = _tile("TTAGGG", REFINE_TELO)
+                    made[name] = text
+                else:
+                    text = made[src[0]][src[1]:src[2]]
+                f.write(b">%s\n%s\n" % (name.encode(), text.tobytes()))
+    open(stamp, "w").close()
+    return fas
+
+
+def _ckpt_lives(specs, idx_path: str, fq: str):
+    """Start one crash-stream life a spec (workdir, crash spec), all at
+    once: the NCCL rank of tests/_torch_ckpt_worker.py at (1, 1) on the
+    index, with a fresh rendezvous file.  Returns a function that waits for
+    them and returns [(exit code, output)] in the specs' order."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for k in ("CORNETTO_FORCE_CPU", "LOCAL_RANK"):
+        env.pop(k, None)
+    procs = []
+    for wdir, crash in specs:
+        os.makedirs(wdir, exist_ok=True)
+        rdv = os.path.join(wdir, "rdv.%d" % time.monotonic_ns())
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "tests",
+                                          "_torch_ckpt_worker.py"),
+             "0", "1", rdv, wdir, fq, crash, "--index", idx_path,
+             "--batch", str(BATCH), "--read-len", str(READ_LEN),
+             "--timeout", str(CRASH_TIMEOUT_S)], env=env, cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return lambda: _ckpt_wait(procs)
+
+
+def _ckpt_wait(procs):
+    res = []
+    try:
+        for p in procs:
+            text = p.communicate(timeout=CRASH_TIMEOUT_S + 120)[0].decode(
+                errors="replace")
+            res.append((p.returncode, text))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def phase_eval_recovery(seed: int, work: str, draft: str, contigs,
+                        idx_path: str, fq: str, card: str):
+    """Phase 18: minidot and hapnetto on their goldens, minidot and gfa2fa
+    on the chr1-chr3 cut, flow-eval on the cut (card against
+    CORNETTO_FORCE_CPU=1), refine over two iterations of 40+ Mbp contigs,
+    and the crash-injected stream under NCCL on the human-scale index.
+    Returns the walls."""
+    import torch
+    from cornetto_tpu_torch.kernels.telo import telo_match_mask
+    from cornetto_tpu_torch.kernels.window_sum import window_sums
+    root = os.path.join(work, "eval")
+    os.makedirs(root, exist_ok=True)
+    synth = os.path.join(HERE, "test_data", "synth")
+    gold = os.path.join(HERE, "test_data", "golden")
+    pgold = os.path.join(gold, "pipelines")
+    walls = {}
+
+    def golden(path, name):
+        with open(os.path.join(path, name), "rb") as f:
+            return f.read()
+
+    # [a] minidot on its three EPS goldens
+    d = _in_dir(os.path.join(root, "minidot"), {
+        "fixasm_fixed.paf": os.path.join(gold, "fixasm_fixed.paf"),
+        "asm_to_ref.paf": os.path.join(synth, "asm_to_ref.paf")})
+    for argv, g in MINIDOT_GOLDENS:
+        out, _ = _cli_in(d, argv)
+        same = out == golden(gold, g)
+        log("[18 eval] %s: byte-equal to golden/%s: %s"
+            % (" ".join(argv), g, same))
+        if not same:
+            fail("%s differs from golden/%s" % (" ".join(argv), g))
+
+    # [b] hapnetto after create-panel (the card's window sums) and after
+    # recreate-panel, with the given haplotype PAFs: the golden trees
+    pipe = _pipe_inputs(os.path.join(work, "synth_pipe"))
+    hap = ["--hap1-paf", "pasm_hap1_to_asm.paf", "--hap2-paf",
+           "pasm_hap2_to_asm.paf"]
+    for flavour in ("create", "recreate"):
+        d = _in_dir(os.path.join(root, "hapnetto_" + flavour),
+                    {f: os.path.join(pipe, f) for f in PIPE_INPUTS})
+        window_sums.launches = 0
+        t0 = time.perf_counter()
+        _cli_in(d, [flavour + "-panel", "pasm.fasta"])
+        _cli_in(d, ["hapnetto", "pasm"] + hap
+                + (["--recreate"] if flavour == "recreate" else []))
+        wall = time.perf_counter() - t0
+        tree = tree_bytes(d)
+        want = sorted(os.listdir(os.path.join(pgold, flavour)))
+        same = len(want) == 4 and all(
+            tree.get(f) == golden(os.path.join(pgold, flavour), f)
+            for f in want)
+        log("[18 eval] %s-panel + hapnetto%s pasm: %s byte-equal to "
+            "golden/pipelines/%s: %s; window-sum launches %d; %.2f s"
+            % (flavour, " --recreate" if flavour == "recreate" else "",
+               ", ".join(want), flavour, same, window_sums.launches, wall))
+        if not same or (flavour == "create" and not window_sums.launches):
+            fail("hapnetto after %s-panel differs from its golden tree"
+                 % flavour)
+
+    # [c] minidot and gfa2fa at the cut's scale
+    cut = contigs[:3]
+    paf = os.path.join(root, "cut.paf")
+    n_rows = cut_paf(paf, cut)
+    d = _in_dir(os.path.join(root, "minidot_cut"), {"cut.paf": paf})
+    t0 = time.perf_counter()
+    out, _ = _cli_in(d, ["minidot", "-f", "2", "--png", "cut.png",
+                         "cut.paf"])
+    walls["minidot"] = time.perf_counter() - t0
+    png = tree_bytes(d).get("cut.png", b"")
+    log("[18 eval] minidot -f 2 --png on the cut's %d-row PAF: %d EPS "
+        "lines, %d PNG bytes, %.2f s" % (n_rows, out.count(b"\n"), len(png),
+                                         walls["minidot"]))
+    if out.count(b" L\n") != n_rows or not png.startswith(b"\x89PNG"):
+        fail("minidot on the cut's PAF: not one line a row, or no PNG")
+    gfa = os.path.join(root, "cut.gfa")
+    with open(draft, "rb") as src, open(gfa, "wb") as dst:
+        while True:
+            name = src.readline()
+            if not name:
+                break
+            dst.write(b"S\t%s\t%s" % (name[1:].rstrip(b"\n"),
+                                      src.readline()))
+    d = _in_dir(os.path.join(root, "gfa2fa"), {"cut.gfa": gfa})
+    t0 = time.perf_counter()
+    _cli_in(d, ["gfa2fa", "cut.gfa"])
+    walls["gfa2fa"] = time.perf_counter() - t0
+    same = _same_file(d + ".stdout", draft)
+    log("[18 eval] gfa2fa on the cut's S-lines (%d bp): byte-equal to the "
+        "cut's FASTA: %s, %.2f s" % (sum(n for _, n in cut), same,
+                                     walls["gfa2fa"]))
+    if not same:
+        fail("gfa2fa on the cut differs from the cut")
+
+    # [d] flow-eval on the cut, minimap2 a template writing the PAF above,
+    # quast / compleasm / yak templates standing for those tools; on the
+    # card, then with CORNETTO_FORCE_CPU=1
+    digests = {}
+    for where in ("card", "cpu"):
+        # one directory for both runs: the outputs name the paths given
+        base = _in_dir(os.path.join(root, "flow_eval"),
+                       {"ref.fasta": draft, "asm.fasta": draft})
+        with open(os.path.join(base, "cfg.json"), "w") as f:
+            json.dump({"threads": 8, "lineage": "primates", "tools": {
+                "minimap2_asm": "cat %s > {out}" % paf,
+                "quast": "mkdir -p {out_dir} && echo quast {threads} > "
+                         "{out_dir}/report.txt",
+                "compleasm": "mkdir -p {out_dir} && echo compleasm "
+                             "{lineage} > {out_dir}/summary.txt",
+                "yak_count": "echo yak > {out}",
+                "yak_qv": "echo QV 50 > {out}"}}, f)
+        telo_match_mask.launches = 0
+        argv = ["flow-eval", os.path.join(base, "wd"),
+                os.path.join(base, "ref.fasta"),
+                os.path.join(base, "asm.fasta"), "--config", "cfg.json"]
+        t0 = time.perf_counter()
+        if where == "cpu":
+            with force_cpu():
+                _cli_in(base, argv)
+        else:
+            _cli_in(base, argv)
+            torch.cuda.synchronize()
+        walls["flow_eval_" + where] = time.perf_counter() - t0
+        walls["flow_eval_%s_launches" % where] = telo_match_mask.launches
+        digests[where] = tree_bytes(base)
+        del digests[where][os.path.join("wd", ".flow.eval.json")]  # times
+        if where == "card":
+            with open(os.path.join(base, "wd", "asm.fasta.telostats.txt")) \
+                    as f:
+                t2t = int(re.search(r"contigs with 2 telo:\t(\d+)",
+                                    f.read()).group(1))
+    same = digests["card"] == digests["cpu"]
+    log("[18 eval] flow-eval on the chr1-chr3 cut (minidotplot --paf, "
+        "telostats, asmstats, templates for minimap2, quast, compleasm and "
+        "yak): card %.2f s (%d telomere-mask launches), CORNETTO_FORCE_CPU=1 "
+        "%.2f s (%d); all %d files byte-equal: %s; %d contigs with two "
+        "telomeres (%s)"
+        % (walls["flow_eval_card"], walls["flow_eval_card_launches"],
+           walls["flow_eval_cpu"], walls["flow_eval_cpu_launches"],
+           len(digests["card"]), same, t2t, card))
+    want = {"wd/asm.eps", "wd/asm.fixed.fasta",
+            "wd/asm.fasta.asmstats.txt", "wd/asm.fasta.yak.txt",
+            "wd/quast_out/report.txt", "ref.fasta.yak"} - set(digests["card"])
+    if not same or want or walls["flow_eval_card_launches"] != 6 or \
+            walls["flow_eval_cpu_launches"] or not t2t:
+        fail("flow-eval on the cut: the card's files differ from the CPU's, "
+             "%s missing, or not 6 mask launches, or no contig with two "
+             "telomeres" % sorted(want))
+    shutil.rmtree(os.path.join(root, "flow_eval"))
+
+    # [e] the crash-injected stream under NCCL at (1, 1) on the human-scale
+    # index: its first wave (the uninterrupted oracle and a life killed at
+    # each crash point) starts here and runs beside [f]; then the resumed
+    # lives, beside the oracle's check against SingleChipEngine.  Each
+    # resumed decisions.tsv and tally byte-identical to the oracle's.
+    crash_fq = os.path.join(root, "crash.fq")
+    with open(fq, "rb") as src, open(crash_fq, "wb") as dst:
+        for _ in range(4 * CRASH_READS):
+            dst.write(src.readline())
+    n_batches = -(-CRASH_READS // BATCH)
+    cdirs = {c: os.path.join(root, "crash_" + c.replace(":", "_"))
+             for c in ("none",) + CRASH_POINTS}
+    for c in cdirs.values():
+        if os.path.isdir(c):
+            shutil.rmtree(c)
+    t_crash = time.perf_counter()
+    wave1 = _ckpt_lives([(cdirs[c], c) for c in cdirs], idx_path, crash_fq)
+
+    # [f] refine over two iterations: telostats (the card's mask) gives
+    # each one's contig ends, refine curates in a process of its own; the
+    # CLI footer's peak RAM (ru_maxrss) carries over what the process that
+    # exec'd it had reached, so refine is started from a small Python
+    # process in between, not from this one
+    fas = write_refine_draft(os.path.join(work, "refine_s%d" % seed), seed)
+    d = _in_dir(os.path.join(root, "refine"), {
+        os.path.basename(fa): fa for fa in fas})
+    beds = []
+    for fa in fas:
+        _cli_in(d, ["telostats", os.path.basename(fa)])
+        beds.append(os.path.basename(fa)[:-len(".fasta")]
+                    + ".windows.0.4.50kb.ends.bed")
+    argv = ["refine", "curated"] + [x for fa, bed in zip(fas, beds)
+                                    for x in (os.path.basename(fa), bed)]
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-c", "import subprocess, sys; "
+         "sys.exit(subprocess.call(sys.argv[1:]))", sys.executable, "-m",
+         "cornetto_tpu_torch.cli"] + argv, cwd=d, capture_output=True,
+        text=True, timeout=900, env=dict(os.environ, PYTHONPATH=HERE))
+    walls["refine"] = time.perf_counter() - t0
+    m = re.search(r"Peak RAM: ([0-9.]+) GB", p.stderr)
+    if p.returncode != 0 or m is None:
+        fail("refine exited %d:\n%s" % (p.returncode, p.stderr[-2000:]))
+    walls["refine_peak_gb"] = float(m.group(1))
+    from cornetto_tpu_torch.io.fasta import read_fastx
+    got = [(r.name, len(r.seq)) for r in read_fastx(
+        os.path.join(d, "curated.fasta"))]
+    want = [("A_1_t2t_tA", 40_500_000), ("A_2_nont2t_tC", 3_000_000)]
+    log("[18 eval] refine over two iterations (%s bp; the ends from "
+        "telostats on the card), beside the crash stream's first wave: "
+        "%.2f s, peak RSS %.3f GB (the CLI's footer); curated %s"
+        % (" + ".join(str(sum(n for _, n, _, _, _ in it))
+                      for it in REFINE_ITERS),
+           walls["refine"], walls["refine_peak_gb"], got))
+    if got != want or p.stdout.count("has 1 T2T") != 2:
+        fail("refine curated %s, not %s" % (got, want))
+
+    wave1 = wave1()
+    walls["crash_wave1"] = time.perf_counter() - t_crash
+    rc, text = wave1[0]
+    computed = [int(x) for x in re.findall(r"batch (\d+) computed", text)]
+    if rc != 0 or "DONE" not in text or computed != list(range(n_batches)):
+        fail("the crash stream's oracle exited %d:\n%s" % (rc, text[-3000:]))
+    with open(os.path.join(cdirs["none"], "decisions.tsv"), "rb") as f:
+        want = f.read()
+    tally = re.search(r"tallies (.+)", text).group(1)
+    log("[18 recovery] crash stream oracle: %d reads in %d batches of %d, "
+        "NCCL (1, 1) on the human-scale index, a checkpoint (index, panel, "
+        "tallies) after every batch: exit 0" % (CRASH_READS, n_batches,
+                                               BATCH))
+    for c, (rc, text) in zip(CRASH_POINTS, wave1[1:]):
+        log("[18 recovery] crashed life %s: exit %d" % (c, rc))
+        if rc != 9 or "CRASH " + c not in text or os.path.exists(
+                os.path.join(cdirs[c], "decisions.tsv")):
+            fail("the life crashed at %s exited %d:\n%s"
+                 % (c, rc, text[-3000:]))
+    t0 = time.perf_counter()
+    wave2 = _ckpt_lives([(cdirs[c], "none") for c in CRASH_POINTS],
+                        idx_path, crash_fq)
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    from cornetto_tpu_torch.livefish.stream import batches_from_fastq
+    idx, panel, _ = load_index(idx_path)
+    eng = SingleChipEngine(idx, panel, device="cuda")
+    del idx
+    rows = []
+    for rb in batches_from_fastq(crash_fq, BATCH, READ_LEN):
+        d_, best, est, nh = (x.cpu().numpy() for x in eng.decide(
+            rb.codes)[:4])
+        rows += ["%s\t%d\t%d\t%d\t%d\n" % (rb.ids[j], int(d_[j]),
+                                            int(best[j]), int(est[j]),
+                                            int(nh[j]))
+                 for j in range(rb.count)]
+    same = "".join(rows).encode() == want
+    del eng
+    torch.cuda.empty_cache()
+    wave2 = wave2()
+    walls["crash_wave2"] = time.perf_counter() - t0
+    for c, (rc, text) in zip(CRASH_POINTS, wave2):
+        kind, i = c.split(":")
+        cursor = int(i) + (1 if kind == "after_ckpt" else 0)
+        computed = [int(x) for x in re.findall(r"batch (\d+) computed",
+                                               text)]
+        with open(os.path.join(cdirs[c], "decisions.tsv"), "rb") as f:
+            got = f.read()
+        m = re.search(r"tallies (.+)", text)
+        ok = got == want and m is not None and m.group(1) == tally
+        log("[18 recovery] resumed after %s: exit %d, resumed at cursor %d, "
+            "recomputed batches %s; decisions.tsv and tallies byte-identical "
+            "to the oracle's: %s" % (c, rc, cursor, computed, ok))
+        if rc != 0 or not ok or computed != list(range(cursor,
+                                                       n_batches)) or \
+                (cursor and "resumed at cursor %d" % cursor not in text):
+            fail("the life resumed after %s differs from the oracle:\n%s"
+                 % (c, text[-3000:]))
+    log("[18 recovery] the oracle's %d rows equal SingleChipEngine.decide's "
+        "on the same batches: %s; walls: the first wave (oracle and crashes) "
+        "and refine beside it %.1f s, the resumes and the SingleChipEngine "
+        "check beside them %.1f s (%s)"
+        % (len(rows), same, walls["crash_wave1"], walls["crash_wave2"],
+           card))
+    if not same:
+        fail("the crash stream's oracle differs from SingleChipEngine")
+    for c in cdirs.values():
+        shutil.rmtree(c)
+    return walls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3003,6 +3494,7 @@ def main():
         now = time.perf_counter()
         phase_s[name] = round(now - clock[0], 2)
         clock[0] = now
+        log("[phases] %s: %.2f s" % (name, phase_s[name]))
 
     card = phase_device()
     lap("1 device")
@@ -3224,6 +3716,9 @@ def main():
     lap("16 dist")
     ht = phase_host_tools(args.seed, work, draft)
     lap("17 host tools")
+    er = phase_eval_recovery(args.seed, work, draft, contigs, idx_path, fq,
+                             card)
+    lap("18 eval and recovery")
     log("[7 numbers] window-sum kernel at chr1, (2, 248956422) uint16, "
         "W=%d S=%d: %.4f ms, plain %.4f ms, x.unfold(...).sum(...) %.4f ms "
         "(%s)" % (WIN, INC, ws_times["ms"], ws_times["plain_ms"],
@@ -3287,6 +3782,17 @@ def main():
                100 * d["later_share"], h["ticks"] / h["replay_s"],
                h["decisions"] / h["replay_s"], d["ticks"] / d["replay_s"],
                d["decisions"] / d["replay_s"], t["ms"], card))
+    log("[7 numbers] eval and recovery: flow-eval on the chr1-chr3 cut, "
+        "card %.2f s, CORNETTO_FORCE_CPU=1 %.2f s; minidot on the cut's PAF "
+        "%.2f s, gfa2fa of its S-lines %.2f s; refine over two iterations "
+        "%.2f s, peak RSS %.3f GB (beside the crash stream's first wave); "
+        "crash stream waves %.1f + %.1f s; "
+        "save_sharded / load_sharded of the (1, 2) gloo ranks' %d-byte "
+        "shards %.2f / %.2f s (%s)"
+        % (er["flow_eval_card"], er["flow_eval_cpu"], er["minidot"],
+           er["gfa2fa"], er["refine"], er["refine_peak_gb"],
+           er["crash_wave1"], er["crash_wave2"], dd["ckpt"]["bytes"],
+           dd["ckpt"]["save_s"], dd["ckpt"]["load_s"], card))
     log("[phases] seconds: %s; total %.1f s"
         % (json.dumps(phase_s), sum(phase_s.values())))
 

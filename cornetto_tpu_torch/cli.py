@@ -1,25 +1,16 @@
-"""`cornetto` CLI of the PyTorch port: counterpart of cornetto_tpu/cli.py.
-
-Ported: ``livefish`` (run | index | toml | cov | replay), ``boringbits``,
-``noboringbits``, ``create-panel``, ``recreate-panel``, ``flow``,
-``telostats``, ``sdust`` and ``telofind``; ``bigenough``, ``telowin``,
-``telobreaks``, ``fixasm``, ``asmstats``, ``nx``, ``report``,
-``telocontigs``, ``fa2bed``, ``seq``, ``depth``, ``bammerge`` and
-``asmstats-pipeline`` are the port's copies of the JAX package's host
-tools.  Every other subcommand of the JAX package exits 1 with "not yet
-ported to cornetto_tpu_torch".  The device is cuda unless
-CORNETTO_FORCE_CPU=1 (cornetto_tpu_torch.device)."""
+"""`cornetto` CLI of the PyTorch port: counterpart of cornetto_tpu/cli.py,
+with the same subcommand tree.  ``livefish`` (run | index | toml | cov |
+replay), ``boringbits``, ``noboringbits``, ``create-panel``, ``flow``,
+``sdust`` and ``telofind`` run the port's engine and kernels
+(``telostats`` and ``flow-eval`` reach telofind's device path); every other
+subcommand is the port's copy of the JAX package's host tool or pipeline.
+The device is cuda unless CORNETTO_FORCE_CPU=1
+(cornetto_tpu_torch.device)."""
 
 import sys
 
-from cornetto_tpu_torch.livefish.cli import NOT_PORTED
 from cornetto_tpu_torch.utils import timing
 from cornetto_tpu_torch.version import __version__
-
-# subcommands of cornetto_tpu.cli that the port does not have yet
-JAX_ONLY = (
-    "minidot", "minidotplot", "hapnetto", "refine", "flow-eval", "flow-sv",
-    "flow-simplex", "gfa2fa")
 
 
 def print_usage(fp) -> int:
@@ -33,6 +24,8 @@ def print_usage(fp) -> int:
     fp.write("   dotplot:\n")
     fp.write("       fixasm          fix the direction of contigs in an "
              "assembly\n")
+    fp.write("       minidot         create dot plot "
+             "(from https://github.com/lh3/miniasm)\n")
     fp.write("   eval:\n")
     fp.write("       asmstats        calculate assembly statistics\n")
     fp.write("       nx              nx or ngx plot tables\n")
@@ -58,12 +51,24 @@ def print_usage(fp) -> int:
              "(fa2bed+noboringbits+intervals+bigenough)\n")
     fp.write("       recreate-panel  recreate-cornetto pipeline\n")
     fp.write("       telostats       telomere statistics pipeline\n")
+    fp.write("       minidotplot     fixasm + minidot dot plot pipeline\n")
+    fp.write("       hapnetto        diploid panel from the haplotype "
+             "alignments (after create-panel / recreate-panel)\n")
+    fp.write("       refine          curate T2T contigs across iterations\n")
     fp.write("       asmstats-pipeline  asmstats pipeline (<prefix>.paf, "
              ".windows.0.4.50kb.ends.bed, .report.tsv)\n")
     fp.write("       livefish        real-time adaptive-sampling decision "
              "engine (run | index | toml | cov | replay)\n")
     fp.write("       flow            one-iteration orchestrator "
              "(align/cov+panel+telostats+index)\n")
+    fp.write("       flow-eval       evaluation chain: "
+             "minidotplot+telostats+asmstats+quast/compleasm/yak\n")
+    fp.write("       flow-sv         SV concordance chain: dipcall -> >50bp "
+             "filter -> truvari\n")
+    fp.write("       flow-simplex    basecall->filter->assemble chain "
+             "([--duplex] for the legacy path)\n")
+    fp.write("       gfa2fa          assembly graph S-lines to FASTA "
+             "(gfatools gfa2fa stage)\n")
     fp.write("       depth           per-base BAM depth\n")
     fp.write("       bammerge        merge position-sorted BAMs (+ .bai)\n")
     fp.write("\n")
@@ -139,6 +144,30 @@ def main(argv=None) -> int:
     elif cmd == "asmstats-pipeline":
         from cornetto_tpu_torch.pipelines import asmstats_sh
         ret = asmstats_sh.main(rest)
+    elif cmd == "minidot":
+        from cornetto_tpu_torch.tools import minidot
+        ret = minidot.main(rest)
+    elif cmd == "minidotplot":
+        from cornetto_tpu_torch.pipelines import minidotplot
+        ret = minidotplot.main(rest)
+    elif cmd == "hapnetto":
+        from cornetto_tpu_torch.pipelines import hapnetto
+        ret = hapnetto.main(rest)
+    elif cmd == "refine":
+        from cornetto_tpu_torch.pipelines import refine
+        ret = refine.main(rest)
+    elif cmd == "flow-eval":
+        from cornetto_tpu_torch.flow import evaljobs
+        ret = evaljobs.eval_main(rest)
+    elif cmd == "flow-sv":
+        from cornetto_tpu_torch.flow import evaljobs
+        ret = evaljobs.sv_main(rest)
+    elif cmd == "flow-simplex":
+        from cornetto_tpu_torch.flow import simplex
+        ret = simplex.main(rest)
+    elif cmd == "gfa2fa":
+        from cornetto_tpu_torch.io import gfa
+        ret = gfa.main(rest)
     elif cmd == "livefish":
         from cornetto_tpu_torch.livefish import cli as livefish_cli
         ret = livefish_cli.main(rest)
@@ -147,9 +176,6 @@ def main(argv=None) -> int:
         return 0
     elif cmd in ("--help", "-h"):
         return print_usage(sys.stdout)
-    elif cmd in JAX_ONLY:
-        sys.stderr.write("[cornetto] %s: %s\n" % (cmd, NOT_PORTED))
-        return 1
     else:
         sys.stderr.write("[cornetto] Unrecognised command %s\n" % cmd)
         return print_usage(sys.stderr)

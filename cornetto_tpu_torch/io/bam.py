@@ -159,6 +159,45 @@ _SEQ_NIBBLE = {c: i for i, c in enumerate("=ACMGRSVTWYHKDBN")}
 _CIGAR_OPS = "MIDNSHP=X"
 
 
+_SEQ_NIB = "=ACMGRSVTWYHKDBN"
+_COMP_TAB = str.maketrans("ACGTN", "TGCAN")
+
+
+def decode_read(payload: bytes):
+    """Decode a raw record payload (as yielded by _iter_raw_records,
+    without the leading block_size) into (name, flag, seq, qual_string) —
+    the fields `samtools fastq` needs.  Reverse-strand records are
+    reverse-complemented back to read orientation, as samtools fastq does.
+    """
+    (ref_id, pos, l_read_name, mapq, _bin, n_cigar, flag, l_seq,
+     _nref, _npos, _tlen) = struct.unpack_from("<iiBBHHHiiii", payload, 0)
+    off = 32
+    name = payload[off:off + l_read_name - 1].decode()
+    off += l_read_name + 4 * n_cigar
+    nib = payload[off:off + (l_seq + 1) // 2]
+    seq = "".join(_SEQ_NIB[(nib[i // 2] >> (4 * (1 - i % 2))) & 0xF]
+                  for i in range(l_seq))
+    off += (l_seq + 1) // 2
+    qraw = payload[off:off + l_seq]
+    if qraw[:1] == b"\xff":
+        qual = "I" * l_seq          # missing quality
+    else:
+        qual = "".join(chr(q + 33) for q in qraw)
+    if flag & 0x10:                 # reverse strand -> read orientation
+        seq = seq.translate(_COMP_TAB)[::-1]
+        qual = qual[::-1]
+    return name, flag, seq, qual
+
+
+def iter_reads_fastq(path: str, nthreads: int = None):
+    """Yields (name, flag, seq, qual) for every record of a BAM —
+    the `samtools fastq` input side (works on unmapped/unsorted BAMs)."""
+    bam = BamFile(path, nthreads=nthreads)
+    data = bam._all()
+    for payload, _rid, _pos, _end in _iter_raw_records(data, bam._aln_off):
+        yield decode_read(payload)
+
+
 def _iter_raw_records(data, off: int):
     """Yield (payload, ref_id, pos, ref_end) for every record; payload is
     the record bytes WITHOUT the leading block_size int32."""

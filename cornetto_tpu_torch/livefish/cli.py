@@ -11,8 +11,6 @@ import numpy as np
 
 from cornetto_tpu_torch.utils import logging as log
 
-NOT_PORTED = "not yet ported to cornetto_tpu_torch"
-
 
 def _load_index_or_die(path):
     import os

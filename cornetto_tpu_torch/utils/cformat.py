@@ -7,6 +7,8 @@ src/bigenough_main.c:206).  These helpers reproduce them exactly.
 
 import math
 
+import numpy as np
+
 
 def c_round(x: float) -> int:
     """C round(): half away from zero (reference: round() in
@@ -33,3 +35,14 @@ def wrap_i32(x: int) -> int:
     if x >= 0x80000000:
         x -= 0x100000000
     return x
+
+
+def fmt_g(x) -> str:
+    """C printf %g of a value first cast to C float (the EPS macros cast with
+    (float) — reference: src/minidot/eps.h:35-40)."""
+    return "%g" % float(np.float32(x))
+
+
+def fmt_float(x) -> str:
+    """C printf %f (6 decimals) of a double."""
+    return "%f" % x

@@ -10,7 +10,9 @@ Usage: python tests/_torch_dist_worker.py <rank> <world> <work dir>
 <work>/plan<world>.json names the cases: the sharded engines ((dp, ep) meshes,
 the reads and packed batches of <work>/inputs.npz, the indexes
 <work>/idx<E>.npz), the sp scans, the halo check, the chunk engine over
-a sharded engine, and the meshes whose layout is recorded.
+a sharded engine, the sharded checkpoint of each rank's engine state
+(dist.checkpoint.save_sharded / load_sharded), and the meshes whose
+layout is recorded.
 """
 
 import datetime
@@ -108,6 +110,36 @@ def _chunk_case(plan, inp, out):
                                    ceE._done[0], ceE._done[1]])
 
 
+def _sharded_ckpt_case(plan, inp, out):
+    """Each rank's table shard and panel through save_sharded and
+    load_sharded (into -1-filled tensors, and with no abstract tree), and
+    the engine's decisions on the reloaded state."""
+    import dataclasses
+    from cornetto_tpu_torch.dist.checkpoint import (load_index, load_sharded,
+                                                    save_sharded)
+    from cornetto_tpu_torch.dist.mesh import make_mesh
+    from cornetto_tpu_torch.livefish.decide import make_sharded_engine
+    dp, ep = plan["sharded_ckpt"]
+    mesh = make_mesh({"dp": dp, "ep": ep})
+    if not mesh.member:
+        return
+    work = plan["work"]
+    idx, panel, _ = load_index(os.path.join(work, "idx%d" % ep))
+    eng = make_sharded_engine(mesh, idx, panel)
+    tree = {"btable": eng.state.btable, "panel": eng.state.panel}
+    path = os.path.join(work, "sharded%dx%d" % (dp, ep))
+    assert save_sharded(path, tree) is True
+    back = load_sharded(path, {k: torch.full_like(v, -1)
+                               for k, v in tree.items()})
+    fresh = load_sharded(path)
+    for k in tree:
+        out["ckpt/%s" % k] = back[k].numpy()
+        out["ckpt/fresh/%s" % k] = fresh[k].numpy()
+    eng.state = dataclasses.replace(eng.state, **back)
+    for i, r in enumerate(eng(inp["reads"])):
+        out["ckpt/decide/%d" % i] = r.numpy()
+
+
 def _mesh_cases(plan, out):
     import torch.distributed as dist
     from cornetto_tpu_torch.dist.mesh import decision_mesh, make_mesh
@@ -147,6 +179,8 @@ def main() -> int:
     _halo_case(world, rank, out)
     if plan.get("chunks"):
         _chunk_case(plan, inp, out)
+    if plan.get("sharded_ckpt"):
+        _sharded_ckpt_case(plan, inp, out)
     np.savez(os.path.join(work, "w%d_r%d.npz" % (world, rank)), **out)
     dist.barrier()
     dist.destroy_process_group()

@@ -274,13 +274,13 @@ def test_usage_lists_annotation_commands(capsys):
     err = capsys.readouterr().err
     for cmd in ("sdust", "telofind", "telowin", "telobreaks"):
         assert cmd in err
-        assert cmd not in cli.JAX_ONLY
-    # telostats is ported: with no assembly it prints its usage
+    # telostats and minidot are ported: with no input each prints its usage
     rc, _, err = _cli(["telostats"])
     assert rc == 1 and "Usage: cornetto telostats" in err
     assert "not yet ported" not in err
     rc, _, err = _cli(["minidot"])
-    assert rc == 1 and "not yet ported" in err
+    assert rc == 1 and "Usage: minidot" in err
+    assert "not yet ported" not in err
 
 
 def test_annotation_imports_no_jax(tmp_path, synth, gold):

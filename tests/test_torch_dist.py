@@ -57,6 +57,8 @@ MESHES = {2: [{"dp": 1, "ep": 2}, {"dp": -1, "ep": 2}, {"sp": 1}],
           8: [{"dp": 2, "ep": 4}, {"dp": 4, "ep": 2}, {"dp": -1, "ep": 4},
               {"x": 2, "y": 2, "z": 2}]}
 CHUNKS = {4: (2, 2)}
+# the (dp, ep) engine whose rank shards go through save_sharded
+SHARDED_CKPT = {2: (1, 2)}
 TIMEOUT_S = 180
 
 
@@ -122,7 +124,8 @@ def _start(shared, world):
                 scan=[(n, c) for n in SCANS[world]
                       for c in range(len(SCAN_CASES))],
                 scan_cases=SCAN_CASES, meshes=MESHES[world],
-                chunks=CHUNKS.get(world), timeout=TIMEOUT_S)
+                chunks=CHUNKS.get(world),
+                sharded_ckpt=SHARDED_CKPT.get(world), timeout=TIMEOUT_S)
     with open(os.path.join(work, "plan%d.json" % world), "w") as f:
         json.dump(plan, f)
     env = dict(os.environ, CORNETTO_FORCE_CPU="1", OMP_NUM_THREADS="1",
@@ -339,6 +342,56 @@ def test_chunks_over_sharded_engine(runs, shared):
                 got = [tuple(x) for x in res["chunks/%s/%d" % (name, t)]]
                 assert got == want[t], (name, t)
         assert res["chunks/done"].all()
+
+
+def test_sharded_checkpoint_round_trip_gloo(runs, shared, jax_ref):
+    """save_sharded / load_sharded at gloo world size 2: each rank gets
+    back its own table shard (the JAX-built index's btable[rank]) and the
+    panel bit for bit, into given tensors and into new ones, and the (1,
+    2) engine on the reloaded state decides the rows the JAX engines
+    decide."""
+    dp, ep = SHARDED_CKPT[2]
+    want = jax_ref(dp, ep, "decide")
+    panel = build_panel_mask(shared["idx"][ep], shared["rows"])
+    for r, res in enumerate(runs(2)):
+        for pre in ("ckpt/", "ckpt/fresh/"):
+            for k, w in (("btable", shared["idx"][ep].btable[r]),
+                         ("panel", panel)):
+                assert res[pre + k].dtype == w.dtype, (r, pre, k)
+                np.testing.assert_array_equal(res[pre + k], w)
+        _same([res["ckpt/decide/%d" % i] for i in range(6)], want)
+
+
+def test_sharded_checkpoint_round_trip_world_size_1(tmp_path, shared,
+                                                    jax_ref):
+    """save_sharded / load_sharded with no process group: a single-device
+    engine's state round-trips bit for bit, overwriting an earlier
+    checkpoint in place, and the engine on the reloaded state decides the
+    JAX single-chip engine's rows."""
+    import dataclasses
+    import torch.distributed as dist
+    from cornetto_tpu_torch.dist.checkpoint import (load_index,
+                                                    load_sharded,
+                                                    save_sharded)
+    from cornetto_tpu_torch.livefish.decide import SingleChipEngine
+    assert not dist.is_initialized()
+    idx, panel, _ = load_index(os.path.join(shared["work"], "idx1"))
+    eng = SingleChipEngine(idx, panel, device="cpu")
+    tree = {"btable": eng.state.btable, "panel": eng.state.panel}
+    path = str(tmp_path / "ckpt")
+    assert save_sharded(path, {"btable": torch.zeros(3, dtype=torch.int64)})
+    assert save_sharded(path, tree) is True
+    back = load_sharded(path, {k: torch.full_like(v, -1)
+                               for k, v in tree.items()})
+    fresh = load_sharded(path)
+    assert sorted(fresh) == ["btable", "panel"]
+    for k, v in tree.items():
+        for got in (back[k], fresh[k]):
+            assert got.dtype == v.dtype and torch.equal(got, v)
+    np.testing.assert_array_equal(back["btable"].numpy(), idx.btable[0])
+    eng.state = dataclasses.replace(eng.state, **back)
+    _same([r.numpy() for r in eng.decide(shared["inputs"]["reads"])],
+          jax_ref(0, 0, "decide"))
 
 
 @pytest.mark.parametrize("ep", [2, 4])

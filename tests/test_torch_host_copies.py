@@ -6,9 +6,10 @@ SDUST chunk plan and reassembly, the native SDUST DP, the telomere walks,
 the window statistics, the host tools and the read-until chunk engines'
 state machines and replay (over a numpy stub engine), the natural sort,
 the PAF readers, the FASTA record writer and the BAM writer with its BAI
-and region depth.  Integers and bytes
-throughout;
-tolerance: exact equality."""
+and region depth, the C float formatters and the EPS writers, the EPS
+rasterizer and PNG writer, the GFA segment reader, the BAM read decoder,
+flow-sv's structural filter and refine's T2T and PAF-coverage rules.
+Integers and bytes throughout; tolerance: exact equality."""
 
 import io
 import pathlib
@@ -17,6 +18,10 @@ import numpy as np
 import pytest
 
 from cornetto_tpu.dist import checkpoint as jax_ckpt
+from cornetto_tpu.flow import evaljobs as jax_evaljobs
+from cornetto_tpu.io import eps as jax_eps
+from cornetto_tpu.io import gfa as jax_gfa
+from cornetto_tpu.io import raster as jax_raster
 from cornetto_tpu.io import bam as jax_bam
 from cornetto_tpu.io import bed as jax_bed
 from cornetto_tpu.io import fasta as jax_fasta
@@ -32,12 +37,15 @@ from cornetto_tpu.livefish import chunks as jax_chunks
 from cornetto_tpu.livefish import index as jax_index
 from cornetto_tpu.livefish.decide import unpack_fused as jax_unpack_fused
 from cornetto_tpu.native.sdust import sdust as jax_native_sdust
+from cornetto_tpu.pipelines import refine as jax_refine
 from cornetto_tpu.tools import telobreaks as jax_telobreaks
 from cornetto_tpu.tools import telowin as jax_telowin
 from cornetto_tpu.tools.telofind import scan_runs as jax_scan_runs
+from cornetto_tpu.utils import cformat as jax_cformat
 from cornetto_tpu.utils import natsort as jax_natsort
 from cornetto_tpu_torch.dist import checkpoint as ckpt
-from cornetto_tpu_torch.io import bam, bed, fasta, paf
+from cornetto_tpu_torch.flow import evaljobs
+from cornetto_tpu_torch.io import bam, bed, eps, fasta, gfa, paf, raster
 from cornetto_tpu_torch.kernels import minimizer as mz
 from cornetto_tpu_torch.kernels import sdust_chunked as chunked
 from cornetto_tpu_torch.kernels.sdust_core import _NT4
@@ -47,9 +55,10 @@ from cornetto_tpu_torch.kernels.window_sum import n_windows, \
 from cornetto_tpu_torch.livefish import chunks, index
 from cornetto_tpu_torch.livefish.decide import unpack_fused
 from cornetto_tpu_torch.native.sdust import sdust as native_sdust
+from cornetto_tpu_torch.pipelines import refine
 from cornetto_tpu_torch.tools import telobreaks, telowin
 from cornetto_tpu_torch.tools.telofind import scan_runs
-from cornetto_tpu_torch.utils import natsort
+from cornetto_tpu_torch.utils import cformat, natsort
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ACGT = np.array(list("ACGT"))
@@ -435,3 +444,116 @@ def test_chunk_engines_and_replay_equal(device, depth, no_map):
     assert out["port"][0]["n_reads"] == 40 and len(out["port"][1]) > 40
     assert chunks.ACTION_NAMES == jax_chunks.ACTION_NAMES
     assert vars(chunks.ChunkPolicy()) == vars(jax_chunks.ChunkPolicy())
+
+
+def test_fmt_g_and_fmt_float_equal():
+    """%g through C float (np.float32) and %f, on values where the cast
+    changes the last printed digit and on the edges of %g's forms."""
+    rng = np.random.default_rng(8)
+    xs = [0.0, -0.0, 1.0, 0.1, 1 / 3, 2 / 3, 1e-5, 123456.7, 1234567.0,
+          3.4e38, 1e-40, -2.5, 600.0 / 7, 99999.95, 0.000123456789]
+    xs += list(rng.standard_normal(200) * 10.0 ** rng.integers(-8, 9, 200))
+    xs += [int(v) for v in rng.integers(-10 ** 9, 10 ** 9, 50)]
+    for x in xs:
+        assert cformat.fmt_g(x) == jax_cformat.fmt_g(x), x
+        assert cformat.fmt_float(x) == jax_cformat.fmt_float(x), x
+    assert cformat.fmt_g(0.1) == "0.1" and cformat.fmt_g(1 / 3) == "0.333333"
+    assert cformat.fmt_g(16777217) == "1.67772e+07"
+
+
+def test_eps_writers_equal():
+    rng = np.random.default_rng(9)
+    v = lambda: float(rng.uniform(-1000, 1000))  # noqa: E731
+    calls = [("header", (v(), v(), v())), ("font", ("Helvetica", 11)),
+             ("gray", (0.5,)), ("linewidth", (v(),)),
+             ("mstr", (v(), v(), "ctg_1")), ("linex", (v(), v(), v())),
+             ("liney", (v(), v(), v())), ("line", (v(), v(), v(), v())),
+             ("color", (0xFF0000,)), ("stroke", ()), ("bottom", ())]
+    got, want = io.StringIO(), io.StringIO()
+    for name, args in calls * 3:
+        getattr(eps, name)(got, *args)
+        getattr(jax_eps, name)(want, *args)
+    assert got.getvalue() == want.getvalue()
+    assert got.getvalue().startswith("%!PS-Adobe-3.0 EPSF-3.0\n")
+
+
+@pytest.mark.parametrize("scale", [1.0, 1.5, 2.0])
+def test_rasterize_eps_and_write_png_equal(tmp_path, scale):
+    """The rasterizer on minidot.eps and the PNG writer (zlib at its fixed
+    level): the same pixels and the same file bytes."""
+    text = (ROOT / "test_data" / "golden" / "minidot.eps").read_text()
+    img = raster.rasterize_eps(text, scale=scale)
+    want = jax_raster.rasterize_eps(text, scale=scale)
+    assert img.dtype == want.dtype and np.array_equal(img, want)
+    assert (img != 255).any()
+    raster.write_png(str(tmp_path / "a.png"), img)
+    jax_raster.write_png(str(tmp_path / "b.png"), want)
+    assert (tmp_path / "a.png").read_bytes() == \
+        (tmp_path / "b.png").read_bytes()
+
+
+def test_gfa_iter_segments_equal(tmp_path):
+    g = tmp_path / "g.gfa"
+    g.write_text("H\tVN:Z:1.0\nS\ta\tACGT\tLN:i:4\nS\tb\t*\n"
+                 "L\ta\t+\tb\t+\t0M\nS\tc\tGG\nS\td\nX\ty\n"
+                 "S\te\tTTTT\n")
+    got = list(gfa.iter_segments(str(g)))
+    assert got == list(jax_gfa.iter_segments(str(g)))
+    assert got == [("a", "ACGT"), ("c", "GG"), ("e", "TTTT")]
+
+
+def test_decode_read_and_iter_reads_fastq_equal(tmp_path):
+    """Every record of example.bam, and of a BAM with reverse-strand and
+    quality-less records, decoded to read orientation."""
+    got = list(bam.iter_reads_fastq(str(ROOT / "test_data" / "example.bam")))
+    want = list(jax_bam.iter_reads_fastq(
+        str(ROOT / "test_data" / "example.bam")))
+    assert len(got) == 50 and got == want
+    assert any(flag & 0x10 for _, flag, _, _ in got)
+    path = str(tmp_path / "r.bam")
+    with bam.BamWriter(path, ["ref"], [1000]) as w:
+        w.write_record("fwd", 0, 0, 10, 60, [(4, 0)], seq="ACGTN",
+                       qual=[30, 31, 32, 33, 34])
+        w.write_record("rev", 16, 0, 20, 60, [(4, 0)], seq="AACGT",
+                       qual=[10, 11, 12, 13, 14])
+        w.write_record("noq", 4, -1, -1, 0, [], seq="ACG")
+    got = list(bam.iter_reads_fastq(path))
+    assert got == list(jax_bam.iter_reads_fastq(path))
+    assert got[1][2] == "ACGTT" and got[1][3] == "/.-,+"
+    for payload, _, _, _ in bam._iter_raw_records(
+            bam.BamFile(path)._all(), bam.BamFile(path)._aln_off):
+        assert bam.decode_read(payload) == jax_bam.decode_read(payload)
+
+
+def test_filter_structural_equal(tmp_path):
+    rows = ["##fileformat=VCFv4.2",
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO",
+            "c1\t10\t.\tA\tT\t.\t.\t.",
+            "c1\t20\t.\t%s\tT\t.\t.\t." % ("A" * 51),
+            "c1\t30\t.\tA\t%s\t.\t.\t." % ("T" * 51),
+            "c1\t40\t.\t%s\tT\t.\t.\t." % ("A" * 50),
+            "short\tline"]
+    vcf = tmp_path / "split.vcf"
+    vcf.write_text("\n".join(rows) + "\n")
+    for min_len in (50, 10, 0):
+        a, b = tmp_path / "a.vcf", tmp_path / "b.vcf"
+        n = evaljobs.filter_structural(str(vcf), str(a), min_len)
+        assert n == jax_evaljobs.filter_structural(str(vcf), str(b), min_len)
+        assert a.read_bytes() == b.read_bytes()
+    assert evaljobs.filter_structural(str(vcf), str(a)) == 2
+
+
+def test_refine_rules_equal(tmp_path):
+    """refine's T2T rule (exactly two telomere-end rows) and the PAF
+    coverage fractions (the script's awk rule) on the goldens' PAFs."""
+    bed = tmp_path / "ends.bed"
+    bed.write_text("a\t0\t9\na\t90\t99\nb\t0\t9\nc\t0\t1\nc\t5\t6\n"
+                   "c\t8\t9\nd\t1\t2\nd\t3\t4\n\n")
+    assert refine.t2t_contigs(str(bed)) == jax_refine.t2t_contigs(str(bed))
+    assert refine.t2t_contigs(str(bed)) == ["a", "d"]
+    for path in ("test_data/golden/fixasm_fixed.paf",
+                 "test_data/synth/asm_to_ref.paf"):
+        got = refine.paf_coverage_fractions(str(ROOT / path))
+        assert got == jax_refine.paf_coverage_fractions(str(ROOT / path))
+        assert got and all(v > 0 for v in got.values())
+

@@ -1,7 +1,9 @@
 """The port stands alone: no source file of ``cornetto_tpu_torch`` (nor
 ``chip_smoke.py``, ``bench_decide.py``, ``bench_telo_mask.py`` or
 ``bench_telo_stats.py``, nor the gloo ranks of tests/test_torch_dist.py,
-tests/_torch_dist_worker.py, nor the
+tests/_torch_dist_worker.py, nor the crash-injected stream's ranks and
+their test, tests/_torch_ckpt_worker.py and
+tests/test_torch_checkpoint_failure.py, nor the
 card tests of tests/test_torch_cuda_kernels.py and their cases in
 tests/_decide_cases.py, which run where JAX is not installed) imports the
 JAX package, and the
@@ -24,7 +26,9 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in
     ["bench_decide.py", "bench_telo_mask.py", "bench_telo_stats.py",
      "chip_smoke.py",
      "tests/_decide_cases.py",
+     "tests/_torch_ckpt_worker.py",
      "tests/_torch_dist_worker.py",
+     "tests/test_torch_checkpoint_failure.py",
      "tests/test_torch_cuda_kernels.py"]
 
 
@@ -71,6 +75,14 @@ def test_sources_listed():
                  "pipelines/telostats.py", "tools/bigenough.py",
                  "utils/natsort.py", "io/paf.py", "io/bam.py"):
         assert "cornetto_tpu_torch/" + path in SOURCES
+    for path in ("utils/cformat.py", "io/eps.py", "tools/minidot.py",
+                 "io/raster.py", "pipelines/minidotplot.py", "io/gfa.py",
+                 "pipelines/hapnetto.py", "pipelines/refine.py",
+                 "flow/evaljobs.py", "flow/simplex.py", "pipelines/saliva.py",
+                 "dist/checkpoint.py"):
+        assert "cornetto_tpu_torch/" + path in SOURCES
+    assert "tests/_torch_ckpt_worker.py" in SOURCES
+    assert "tests/test_torch_checkpoint_failure.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)
@@ -181,3 +193,107 @@ def test_cli_entry_points_import_neither_jax_nor_the_jax_package(tmp_path,
     assert (tmp_path / "m.bam.bai").exists()
     assert (work / "draft.boringbits.bed").exists()
     assert (work / "asm.windows.0.4.50kb.ends.bed").exists()
+
+
+def test_new_entry_points_import_neither_jax_nor_the_jax_package(
+        tmp_path, synth, gold):
+    """minidot (with --png), minidotplot with a given PAF, gfa2fa,
+    hapnetto (after recreate-panel, with given PAFs), refine, and flow-eval,
+    flow-sv and flow-simplex (both paths) with --config tool templates
+    standing for the outside tools, through the port's CLI in a fresh
+    interpreter; then saliva's functions and save_sharded / load_sharded.
+    Neither jax nor cornetto_tpu ends up in sys.modules."""
+    import json
+    import numpy as np
+    rng = np.random.default_rng(12)
+    acgt = np.array(list("ACGT"))
+    lens = {"ctg0": 30000, "ctg1": 20000}
+    (tmp_path / "draft.fasta").write_text("".join(
+        ">%s\n%s\n" % (n, "".join(acgt[rng.integers(0, 4, ln)]))
+        for n, ln in lens.items()))
+    (tmp_path / "draft.bp.p_ctg.lowQ.bed").write_text("ctg1\t100\t900\n")
+    for hap in ("hap1", "hap2"):
+        (tmp_path / ("%s.paf" % hap)).write_text(
+            "h\t5000\t0\t4000\t+\tctg0\t30000\t1000\t5000\t3990\t4000"
+            "\t60\n")
+    # yak count writes <ref>.yak beside the ref: a link here
+    (tmp_path / "ref.fasta").symlink_to(synth / "asm.fasta")
+    (tmp_path / "g.gfa").write_text("S\tp1\tACGT\n")
+    (tmp_path / "t.bed").write_text("ctg0\t0\t9\nctg0\t29990\t30000\n")
+    (tmp_path / "s.blow5").write_text("x")
+    (tmp_path / "reads.fq").write_text("@r\nACGT\n+\nIIII\n")
+    (tmp_path / "cls.tsv").write_text("readID\tseqID\ttaxID\nr\ts\t9606\n")
+    paf = str(synth / "asm_to_ref.paf")
+    cfgs = {
+        "eval": {"threads": 2, "tools": {
+            "minimap2_asm": "cat %s > {out}" % paf,
+            "quast": "mkdir -p {out_dir}", "compleasm": "mkdir -p {out_dir}",
+            "yak_count": "touch {out}", "yak_qv": "echo QV > {out}"}},
+        "sv": {"tools": {
+            "dipcall": "echo all: > {mak}",
+            "make_dip": "printf '' | gzip > dip.dip.vcf.gz",
+            "bcftools_norm": "printf '#h\\n' > {out}",
+            "bgzip": "gzip {path}", "tabix": "touch {path}.tbi"}},
+        "simplex": {"tools": {
+            "slow5_stats": "true",
+            "basecall": "printf '@r\\n%s\\n+\\n%s\\n' > {out}"
+                        % ("A" * 40, "I" * 40),
+            "hifiasm": "for s in p_ctg hap1.p_ctg hap2.p_ctg; do "
+                       "printf 'S\\tp\\tACGT\\n' > {asm}.bp.$s.gfa; done"},
+            "min_read_len": 10},
+        "duplex": {"channel_groups": 1, "tools": {
+            "slow5_split": "mkdir -p {out_dir} && touch {out_dir}/g0.blow5",
+            "basecall_duplex": "cp %s {out}"
+                               % (tmp_path.parent / "x.bam")}}}
+    from cornetto_tpu_torch.io.bam import BamWriter
+    with BamWriter(str(tmp_path.parent / "x.bam"), ["ref"], [100]) as w:
+        w.write_record("q", 4, -1, -1, 0, [], seq="ACGT" * 3000,
+                       qual=[30] * 12000)
+    for name, cfg in cfgs.items():
+        (tmp_path / ("%s.json" % name)).write_text(json.dumps(cfg))
+    code = (
+        "import contextlib, io, os, sys\n"
+        "from cornetto_tpu_torch.cli import main\n"
+        "tmp, synth, gold = sys.argv[1:]\n"
+        "os.chdir(tmp)\n"
+        "asm = synth + '/asm.fasta'\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    for argv in (['minidot', '--png', 'd.png',"
+        " gold + '/fixasm_fixed.paf'],"
+        " ['minidotplot', asm, asm, '--paf', synth + '/asm_to_ref.paf',"
+        " '--png'], ['gfa2fa', 'g.gfa'],"
+        " ['recreate-panel', 'draft.fasta'],"
+        " ['hapnetto', 'draft', '--hap1-paf', 'hap1.paf', '--hap2-paf',"
+        " 'hap2.paf', '--recreate'],"
+        " ['refine', 'cur', 'draft.fasta', 't.bed'],"
+        " ['flow-eval', tmp + '/ev', tmp + '/ref.fasta', asm, '--config',"
+        " 'eval.json'],"
+        " ['flow-sv', tmp + '/sv', asm, asm, asm, '--config', 'sv.json'],"
+        " ['flow-simplex', tmp + '/sx', 's', tmp + '/s.blow5',"
+        " '--config', 'simplex.json'],"
+        " ['flow-simplex', tmp + '/dx', 's', tmp + '/s.blow5', '--duplex',"
+        " '--config', 'duplex.json']):\n"
+        "        assert main(['cornetto'] + argv) == 0, argv\n"
+        "from cornetto_tpu_torch.pipelines import saliva\n"
+        "assert saliva.extract_human_reads('reads.fq', 'cls.tsv',"
+        " out=io.StringIO()) == (1, 0)\n"
+        "import torch\n"
+        "from cornetto_tpu_torch.dist.checkpoint import load_sharded,"
+        " save_sharded\n"
+        "t = {'a': torch.arange(5)}\n"
+        "assert save_sharded(tmp + '/ck', t)\n"
+        "assert torch.equal(load_sharded(tmp + '/ck')['a'], t['a'])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or "
+        "m == 'cornetto_tpu' or m.startswith('cornetto_tpu.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, CORNETTO_FORCE_CPU="1", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path), str(synth), str(gold)],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for out in ("d.png", "asm.eps", "asm.png", "draft_dip.boringbits.bed",
+                "cur.fasta", "ev/asm.fasta.asmstats.txt", "ref.fasta.yak",
+                "sv/structural_split.vcf.gz", "sx/s.hap2.fasta",
+                "dx/s.duplex_split.stats"):
+        assert (tmp_path / out).exists(), out

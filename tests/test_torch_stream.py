@@ -153,10 +153,45 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch, capsys):
     assert resolve_device() == torch.device("cpu")
 
 
-@pytest.mark.parametrize("argv", [["minidot", "x.paf"],
-                                  ["minidotplot", "x.fa"],
-                                  ["hapnetto", "x"],
-                                  ["gfa2fa", "x.gfa"]])
-def test_unported_commands_exit_1(argv, capsys):
-    assert torch_cli.main(["cornetto"] + argv) == 1
-    assert "not yet ported to cornetto_tpu_torch" in capsys.readouterr().err
+def _jax_subcommands():
+    """Every subcommand cornetto_tpu/cli.py dispatches (its ``cmd == "..."``
+    branches), in its order."""
+    import ast
+    src = (ROOT / "cornetto_tpu" / "cli.py").read_text()
+    return [n.comparators[0].value for n in ast.walk(ast.parse(src))
+            if isinstance(n, ast.Compare) and isinstance(n.left, ast.Name)
+            and n.left.id == "cmd" and isinstance(n.ops[0], ast.Eq)]
+
+
+JAX_SUBCOMMANDS = _jax_subcommands()
+
+
+def test_jax_subcommands_listed():
+    assert len(JAX_SUBCOMMANDS) == 30
+    for cmd in ("minidot", "minidotplot", "hapnetto", "refine", "flow-eval",
+                "flow-sv", "flow-simplex", "gfa2fa", "livefish", "fixasm"):
+        assert cmd in JAX_SUBCOMMANDS
+    assert not hasattr(torch_cli, "JAX_ONLY")
+
+
+@pytest.mark.parametrize("cmd", JAX_SUBCOMMANDS)
+def test_every_jax_subcommand_dispatches(cmd, capsys, monkeypatch):
+    """The port dispatches every subcommand of the JAX CLI: with no
+    arguments each prints its own usage (not "not yet ported" nor
+    "Unrecognised command") and exits as the JAX CLI does, with the same
+    stdout and stderr (the footer's times masked)."""
+    import io
+    import re
+    monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
+    times = re.compile(r"Real time: .*")
+    got = []
+    for main in (torch_cli.main, jax_cli.main):
+        monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+        rc = main(["cornetto", cmd])
+        out, err = capsys.readouterr()
+        got.append((rc, out, times.sub("", err)))
+    rc, out, err = got[0]
+    assert rc == 1 and "Usage" in err + out
+    assert "not yet ported" not in err
+    assert "Unrecognised command" not in err
+    assert got[0] == got[1]
