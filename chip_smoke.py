@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (cornetto_tpu_torch).
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--votes-against DIR]
 
 Needs one NVIDIA GPU with the CUDA toolkit (nvcc).  Run from the root of a
-checkout.  It:
+checkout.  With --votes-against DIR (another checkout, such as the parent
+commit's, unpacked under build/), phase 16 also times DIR's votes and
+policy kernels in turns with this checkout's on its batch and index.  It:
 
 1. prints the card, its power limit and the toolchain;
 2. builds the six kernel sources of cornetto_tpu_torch/csrc;
@@ -108,15 +110,17 @@ checkout.  It:
 16. the multi-device runtime (cornetto_tpu_torch/dist, make_sharded_engine)
    on the one card: an NCCL process group of one rank deciding phase 5's
    65 batches at (dp, ep) = (1, 1), bit-equal to SingleChipEngine, with
-   one launch of the extraction, votes and policy kernels a batch; two
-   gloo processes sharing the card (this script with --dist-rank), at
+   one launch of the fused step a batch (no planes, no reduce-scatter);
+   two gloo processes sharing the card (this script with --dist-rank), at
    (1, 2) on the 2-shard index, held to the plain looped-shard oracle and
-   compared with the 1-shard engine, and at (2, 1), held to
+   compared with the 1-shard engine, with one extraction, one votes and
+   one policy launch a batch a rank, and at (2, 1), held to
    SingleChipEngine, plus an sp scan of chr1's length held to the
    single-device window stats; the votes and policy kernels against their
    plain versions at C = 1, 87 and past the shared-memory limit, timed by
-   graph replay; the sharded step's per-stage split from CUDA events; each
-   gloo rank's (1, 2) engine state (its 2.15 GB table shard and the panel)
+   graph replay, the policy beside an empty kernel's launch floor; the
+   sharded step's per-stage split from CUDA events; each gloo rank's (1,
+   2) engine state (its 2.15 GB table shard and the panel)
    through dist.checkpoint.save_sharded and load_sharded into fresh
    tensors on the card, timed, and the reloaded engine's rows held to the
    first run's (reported with phase 18);
@@ -165,6 +169,7 @@ result.
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import re
@@ -2353,11 +2358,56 @@ def policy_work(b, C):
     return dict(bytes=b * C * 4 + b * (8 * 4 + 1 + 21), ops=b * C)
 
 
-def phase_dist_kernels(seed, idx2_path, batch):
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void cornetto_empty_kernel() {}
+extern "C" int cornetto_empty(int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cornetto_empty_kernel<<<blocks, 256, 0, s>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _empty_kernel():
+    """cornetto_empty(blocks, stream) of EMPTY_CU, built with the kernels'
+    nvcc flags into build/smoke/empty/."""
+    import ctypes
+    from cornetto_tpu_torch.kernels import _build
+    out = os.path.join(HERE, "build", "smoke", "empty")
+    os.makedirs(out, exist_ok=True)
+    src, so = os.path.join(out, "empty.cu"), os.path.join(out, "libempty.so")
+    with open(src, "w") as f:
+        f.write(EMPTY_CU)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(so).cornetto_empty
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def launch_floor_ms(blocks: int) -> float:
+    """This card's launch floor: the graph-replay time of an empty kernel
+    of `blocks` blocks of 256 threads, launched through ctypes as the
+    wrappers launch theirs."""
+    import torch
+    fn = _empty_kernel()
+
+    def launch():
+        if fn(blocks, torch.cuda.current_stream().cuda_stream):
+            fail("the empty kernel did not launch")
+    return graph_ms(launch)
+
+
+def phase_dist_kernels(seed, work, idx2_path, batch, against, card):
     """The votes and policy kernels against their plain versions on the
     human-scale 2-shard index (ep = 2, shards 0 and 1) at C = 1, 87 and one
-    past the shared-memory limit; timed by CUDA-graph replay at the (1, 2)
-    layout's shapes.  Returns (worst error, votes timing, policy timing)."""
+    past the shared-memory limit; timed by CUDA-graph replay at the (1, 2) layout's shapes,
+    the policy beside an empty kernel of its grid (the launch floor), and
+    with ``against`` (a checkout) in turns with that checkout's kernels
+    (votes_turns).  Returns (worst error, votes timing, policy timing)."""
     import torch
     from cornetto_tpu_torch.dist.checkpoint import load_index
     from cornetto_tpu_torch.kernels.extract import extract_minima
@@ -2404,7 +2454,10 @@ def phase_dist_kernels(seed, idx2_path, batch):
                                                             1000)),
                       plain_ms=cuda_ms(lambda: policy_from_stats_ref(
                           half, pn, 3, 1000), 5),
-                      library_ms=None)
+                      library_ms=None,
+                      # the policy's grid: a warp a read
+                      floor_ms=launch_floor_ms(-(-half.shape[1] * 32 // 256)))
+            panel0 = pn
         log("[16 dist] votes + policy kernels, ep = 2, shards 0 and 1, (%d, "
             "%d) hashes, C = %d (%s): max_abs_err=%d so far"
             % (h.shape[0], h.shape[1], C, "shared memory"
@@ -2413,11 +2466,81 @@ def phase_dist_kernels(seed, idx2_path, batch):
     torch.cuda.empty_cache()
     if worst:
         fail("the votes or policy kernel disagrees with its plain version")
+    if against:
+        votes_turns(work, idx2_path, h, v, panel0, against, card)
     return worst, tv, tp
 
 
+def votes_turns(work, idx2_path, h, v, panel, other, card):
+    """This checkout's votes and policy kernels timed in turns with those
+    of another checkout ``other`` at the (1, 2) layout's shapes: four
+    processes, other, this, this, other, each ``chip_smoke.py --votes-time
+    CHECKOUT`` on the same hashes, 2-shard index and panel; fails unless
+    every run's outputs are the same."""
+    import numpy as np
+    np.savez(os.path.join(work, "votes_turns.npz"), h=h.cpu().numpy(),
+             v=v.cpu().numpy(), panel=panel.cpu().numpy())
+    runs = []
+    for root in (other, HERE, HERE, other):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--votes-time",
+             os.path.abspath(root), "--dist-work", work, "--dist-index2",
+             idx2_path], cwd=HERE, capture_output=True, text=True,
+            timeout=DIST_TIMEOUT_S)
+        if proc.returncode != 0:
+            fail("--votes-time %s exited %d:\n%s"
+                 % (root, proc.returncode, proc.stdout + proc.stderr))
+        runs.append(json.loads(proc.stdout.splitlines()[-1]))
+    for what in ("votes_0_ms", "votes_1_ms", "policy_ms"):
+        log("[16 dist] in turns, %s (other: %s): other %.4f / %.4f ms, this "
+            "%.4f / %.4f ms by graph replay (%s)"
+            % (what[:-3], other, runs[0][what], runs[3][what],
+               runs[1][what], runs[2][what], card))
+    if len({r["digest"] for r in runs}) != 1:
+        fail("the two checkouts' votes or policy outputs differ")
+
+
+def votes_time(args):
+    """One process of votes_turns (chip_smoke.py --votes-time CHECKOUT
+    ...): that checkout's sharded_votes on both shards (parts = 2) and
+    policy_from_stats on the first half of their summed planes, timed by
+    graph replay; prints one JSON line of the times and a digest of the
+    outputs."""
+    import hashlib
+    import numpy as np
+    import torch
+    import cornetto_tpu_torch
+    root = os.path.abspath(args.votes_time)
+    if not os.path.abspath(cornetto_tpu_torch.__file__).startswith(
+            root + os.sep):
+        fail("cornetto_tpu_torch came from %s, not %s"
+             % (cornetto_tpu_torch.__file__, root))
+    from cornetto_tpu_torch.dist.checkpoint import load_index
+    from cornetto_tpu_torch.kernels.votes import (policy_from_stats,
+                                                  sharded_votes)
+    dev = torch.device("cuda")
+    d = np.load(os.path.join(args.dist_work, "votes_turns.npz"))
+    h, v, pn = (torch.from_numpy(d[k]).to(dev) for k in ("h", "v", "panel"))
+    idx, _, _ = load_index(args.dist_index2)
+    C = pn.shape[0]
+    digest, out, stats = hashlib.sha256(), {}, 0
+    for s in range(2):
+        a = (h, v, torch.from_numpy(idx.btable[s]).to(dev), idx.bucket_shift,
+             idx.two_choice, 2, s, C)
+        got = sharded_votes(*a, parts=2)
+        digest.update(got.cpu().numpy().tobytes())
+        stats = stats + got.transpose(0, 1).reshape(9, -1, C)
+        out["votes_%d_ms" % s] = graph_ms(lambda: sharded_votes(*a, parts=2))
+    half = stats[:, :stats.shape[1] // 2].contiguous()
+    for o in policy_from_stats(half, pn, 3, 1000):
+        digest.update(o.cpu().numpy().tobytes())
+    out["policy_ms"] = graph_ms(lambda: policy_from_stats(half, pn, 3, 1000))
+    out["digest"] = digest.hexdigest()
+    print(json.dumps(out))
+
+
 def phase_dist(seed: int, work: str, idx_path: str, idx2_path: str,
-               fq: str, card: str):
+               fq: str, card: str, against=None):
     """The multi-device runtime (cornetto_tpu_torch/dist, the sharded
     engine) on the one card: NCCL at world size 1 over phase 5's batches,
     bit-equal to SingleChipEngine; two gloo processes on the card at (1, 2)
@@ -2472,7 +2595,8 @@ def phase_dist(seed: int, work: str, idx_path: str, idx2_path: str,
                     policy=policy_from_stats.launches,
                     decide=decide_packed.launches)
     n = len(batches)
-    if launches != dict(extract=n, votes=n, policy=n, decide=0):
+    # ep = 1: the fused step, one launch a batch, no planes
+    if launches != dict(extract=0, votes=0, policy=0, decide=n):
         fail("the sharded engine's launches over %d batches: %s"
              % (n, launches))
     single, bad = [], 0
@@ -2610,8 +2734,24 @@ def phase_dist(seed: int, work: str, idx_path: str, idx2_path: str,
             "collectives stage them through pinned host memory instead; "
             "send/recv not asked): %s" % f.read())
 
+    # the (1, 2) layout's extraction, votes and policy launches (the ep > 1
+    # route), both ranks, over the first run of its batches
+    ep2_launches = {k: sum(int(res[r]["launches/" + k])
+                           for r in range(DIST_RANKS))
+                    for k in ("extract", "votes", "policy", "decide")}
+    log("[16 dist] gloo (1, 2), both ranks, %d batches: launches %s"
+        % (len(full), ep2_launches))
+    each = DIST_RANKS * len(full)
+    if ep2_launches != dict(extract=each, votes=each, policy=each,
+                            decide=0):
+        fail("the (1, 2) layout's votes and policy launches: %s"
+             % ep2_launches)
+    launches.update(votes=ep2_launches["votes"],
+                    policy=ep2_launches["policy"])
+
     # [c] the kernels alone
-    err, tv, tp = phase_dist_kernels(seed, idx2_path, full[0])
+    err, tv, tp = phase_dist_kernels(seed, work, idx2_path, full[0], against,
+                                     card)
     for name, t in (("votes", tv), ("policy", tp)):
         b_ms, b_by = bound(t)
         log("[16 dist] %s kernel at the (1, 2) layout's shapes: %.4f ms by "
@@ -2619,6 +2759,9 @@ def phase_dist(seed: int, work: str, idx_path: str, idx2_path: str,
             "reached, plain %.4f ms (%s)"
             % (name, t["ms"], b_ms, b_by, t["bytes"], 100 * b_ms / t["ms"],
                t["plain_ms"], card))
+    log("[16 dist] launch floor: an empty kernel of the policy's grid, "
+        "launched through ctypes, %.4f ms by graph replay (%s)"
+        % (tp["floor_ms"], card))
     return dict(launches=launches, err=err, votes=tv, policy=tp,
                 timing=timing, ckpt=ckpt)
 
@@ -2684,6 +2827,10 @@ def dist_worker(args):
     from cornetto_tpu_torch.kernels.decide import (_lookup_votes,
                                                    _policy_from_stats)
     from cornetto_tpu_torch.kernels.extract import extract_minima_ref
+    from cornetto_tpu_torch.kernels.decide import decide_packed
+    from cornetto_tpu_torch.kernels.extract import extract_minima
+    from cornetto_tpu_torch.kernels.votes import (policy_from_stats,
+                                                  sharded_votes)
     from cornetto_tpu_torch.livefish import decide as td
     rank, work = args.dist_rank, args.dist_work
     multihost.initialize(
@@ -2704,11 +2851,18 @@ def dist_worker(args):
         mesh = make_mesh({"dp": dp, "ep": ep})
         idx, panel, _ = load_index(path)
         eng = td.make_sharded_engine(mesh, idx, panel)
+        kernels = (extract_minima, sharded_votes, policy_from_stats,
+                   decide_packed)
+        for fn in kernels:
+            fn.launches = 0
         for i, b in enumerate(batches):
             for j, o in enumerate(eng.decide_packed(b[0], b[1], READ_LEN,
                                                     lengths=b[2])):
                 out["%s/%d/%d" % (name, i, j)] = o.cpu().numpy()
         if name == "ep2":
+            for key, fn in zip(("extract", "votes", "policy", "decide"),
+                               kernels):
+                out["launches/" + key] = fn.launches
             out.update(sharded_round_trip(eng, batches, work, out))
         _, split = split_ms(eng, eng.upload(*batches[0]), 10)
         for k, ms in split.items():
@@ -3475,6 +3629,11 @@ def main():
     ap.add_argument("--dist-work", help=argparse.SUPPRESS)
     ap.add_argument("--dist-index", help=argparse.SUPPRESS)
     ap.add_argument("--dist-index2", help=argparse.SUPPRESS)
+    ap.add_argument("--votes-against", metavar="DIR",
+                    help="another checkout whose votes and policy kernels "
+                    "phase 16 times in turns with this one's")
+    # one process of those turns, started by the script itself
+    ap.add_argument("--votes-time", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cornetto_tpu_torch")):
         fail("cornetto_tpu_torch/ not found beside chip_smoke.py: run it "
@@ -3485,6 +3644,10 @@ def main():
         fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
     if args.dist_rank is not None:
         dist_worker(args)
+        return
+    if args.votes_time is not None:
+        sys.path.insert(0, os.path.abspath(args.votes_time))
+        votes_time(args)
         return
 
     clock = [time.perf_counter()]
@@ -3712,7 +3875,8 @@ def main():
     lap("14 cuda tests")
     rp = phase_replay(args.seed, work, idx_path, rfq)
     lap("15 replay")
-    dd = phase_dist(args.seed, work, idx_path, idx2_path, fq, card)
+    dd = phase_dist(args.seed, work, idx_path, idx2_path, fq, card,
+                    args.votes_against)
     lap("16 dist")
     ht = phase_host_tools(args.seed, work, draft)
     lap("17 host tools")

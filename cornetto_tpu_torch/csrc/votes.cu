@@ -1,6 +1,7 @@
 // The sharded decision engine's two device steps for NVIDIA Hopper
 // (sm_90a): the shard-masked lookup and votes, and the policy on the votes
-// summed over the shards.
+// summed over the shards.  With one shard (ep = 1) nothing is summed and
+// the engine runs csrc/decide.cu's fused step instead.
 //
 // Replaces the XLA code of cornetto_tpu/livefish/decide.py::
 // _decide_from_minima with ep_axis set (:254-296), which the JAX package
@@ -30,7 +31,9 @@
 // What bounds it: the table rows it gathers (one or two 32-byte rows a
 // hash this shard owns: latency-bound random sectors of a table of GBs)
 // and the dense planes it writes (9 b C 4 bytes: 12.8 MB at b = 4096, C =
-// 87, more than the gathers).
+// 87, more than the gathers).  It reaches about a third of that bound; a
+// per-read hit list written out in int4 runs was slower on the human-scale
+// index, where a read votes for many contigs (PERF.md §6).
 //
 // cornetto_policy_from_stats.  A warp a read: its lanes stride over the
 // read's votes row (coalesced), a warp max then min picks the first

@@ -30,7 +30,10 @@ them, each rank looks up the hashes its shard of the table owns
 (kernels.votes.sharded_votes), one reduce-scatter sums the nine vote
 planes back to the rows' owners, the policy runs there
 (kernels.votes.policy_from_stats) and one all-gather gives every rank the
-whole batch's outputs.
+whole batch's outputs.  With one shard (ep = 1) nothing is summed across
+shards: the rank's rows go through the single-device fused step
+(kernels.decide.decide_packed, one launch), with no gather, planes or
+reduce-scatter.
 """
 
 from dataclasses import dataclass
@@ -320,8 +323,21 @@ class ShardedEngine:
         each stage's name as the stage is issued: "extract", "gather",
         "votes", "reduce", "policy", "outputs"."""
         mark = mark or (lambda name: None)
-        ep_group = self.mesh.groups["ep"]
         st, p = self.state, self.params
+        if self.ep == 1:
+            # one shard holds the whole table: the fused single-device step
+            # (one launch, no planes) times under "votes"; the other marks
+            # time nothing
+            mark("extract")
+            mark("gather")
+            outs = decide_packed(st.btable, packed, nmask, st.panel, L,
+                                 st.k, st.w, p.min_hits, p.bin_size,
+                                 st.bucket_shift, st.two_choice,
+                                 lengths=lengths)
+            mark("votes")
+            mark("reduce")
+            mark("policy")
+            return self._gather_outputs(outs, mark)
         C = st.panel.shape[0]
         h, valid = extract_minima(packed, nmask, L, st.k, st.w,
                                   lengths=lengths)
@@ -329,6 +345,7 @@ class ShardedEngine:
         # the hashes and the valid flags in one all-gather: b rows of 4 M
         # hash bytes and M flag bytes
         b, M = h.shape
+        ep_group = self.mesh.groups["ep"]
         both = collectives.all_gather(
             torch.cat([h.view(torch.uint8), valid.view(torch.uint8)], dim=1),
             ep_group)
@@ -338,13 +355,17 @@ class ShardedEngine:
         planes = sharded_votes(h_all, valid_all, st.btable, st.bucket_shift,
                                st.two_choice, self.ep, self.shard, C,
                                parts=self.ep)
-        if self.ep == 1:
-            planes = planes[None]
         mark("votes")
         stats = collectives.reduce_scatter_sum(planes, ep_group)
         mark("reduce")
         outs = policy_from_stats(stats, st.panel, p.min_hits, p.bin_size)
         mark("policy")
+        return self._gather_outputs(outs, mark)
+
+    def _gather_outputs(self, outs, mark):
+        """The rank's six (b,) outputs all-gathered over the mesh into the
+        whole batch's."""
+        b = outs[0].shape[0]
         six = collectives.all_gather(
             torch.stack([o.to(torch.int32) for o in outs]), self.mesh.group)
         six = six.view(self.n_blocks, 6, b).transpose(0, 1).reshape(6, -1)
@@ -371,11 +392,13 @@ def make_sharded_engine(mesh, index: MinimizerIndex, panel_mask: np.ndarray,
     array, so the chunk engine (livefish.chunks) and any caller written for
     SingleChipEngine run unchanged on every rank.
 
-    A step launches the extraction kernel, the votes kernel and the policy
-    kernel once each, and runs three collectives: an all-gather of the
-    minimizers over ep, a reduce-scatter of the int32 vote planes over ep
-    (sums wrap as JAX's psum_scatter does), an all-gather of the outputs
-    over the mesh."""
+    At ep > 1 a step launches the extraction kernel, the votes kernel and
+    the policy kernel once each, and runs three collectives: an all-gather
+    of the minimizers over ep, a reduce-scatter of the int32 vote planes
+    over ep (sums wrap as JAX's psum_scatter does), an all-gather of the
+    outputs over the mesh.  At ep = 1 nothing is summed across shards: a
+    step launches the fused single-device step (kernels.decide.
+    decide_packed, no planes) and runs the outputs' all-gather alone."""
     if not mesh.member:
         raise ValueError("this rank is outside the mesh")
     return ShardedEngine(mesh, index, panel_mask, params)

@@ -658,12 +658,12 @@ def test_device_chunk_tick_surfaces_a_length_the_kernel_refuses(cuda_device):
 
 # ---------------------------------------------------- sharded votes, policy
 
-def _one_contig_index(ep):
+def _one_contig_index(ep, w=10):
     from cornetto_tpu_torch.livefish.index import (build_index,
                                                    build_panel_mask)
     codes = [np.random.default_rng(31).integers(0, 4, size=60_000,
                                                 dtype=np.uint8)]
-    idx = build_index([("c0", "".join(ACGT[codes[0]]))], n_shards=ep)
+    idx = build_index([("c0", "".join(ACGT[codes[0]]))], n_shards=ep, w=w)
     return idx, build_panel_mask(idx, [("c0", 0, 30_000)]), codes
 
 
@@ -694,9 +694,9 @@ def _votes_case(n_ctg, ep, two_choice):
 
 # (contigs in the draft, C the kernels are given): C = 1; C = 3; C = 87,
 # the human-scale draft's count (the plain version's scatter-add side);
-# and one past the largest C whose planes fit shared memory (global
-# atomics), with the panel padded by contigs no read hits
-VOTES_C = [(1, 1), (3, 3), (87, 87), (3, "past")]
+# C = 300; and one past the largest C whose planes fit shared memory
+# (global atomics), with the panel padded by contigs no read hits
+VOTES_C = [(1, 1), (3, 3), (87, 87), (300, 300), (3, "past")]
 
 
 def _padded_panel(panel, C):
@@ -788,6 +788,44 @@ def test_policy_kernel_takes_the_first_maximum(cuda_device, C):
     assert int(got[1][0]) == 0 and int(got[1][1]) == C // 2
     for g, r in zip(got, want):
         assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("C", [1, "past"])
+def test_votes_kernels_at_long_reads(cuda_device, C):
+    """Reads of 1800 bases at w = 5 (357 windows a read, eight lanes a
+    group), the planes in shared memory (C = 1) and past it (global
+    atomics, the panel padded): the votes kernel against its plain version
+    at ep = 1, 2, in one block and in ep parts, and the policy on the
+    summed planes against the plain policy."""
+    L = 1800
+    idx1, panel, codes = _one_contig_index(1, w=5)
+    rng = np.random.default_rng(33)
+    reads = np.stack([codes[0][s:s + L] for s in
+                      rng.integers(0, 60_000 - L, size=32)])
+    reads[::5] = rng.integers(0, 4, size=reads[::5].shape)
+    packed, _ = pack_reads(reads)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    h, v = extract_minima(put(packed), None, L, idx1.k, idx1.w)
+    assert h.shape[1] == 357
+    C = shared_limit() + 1 if C == "past" else C
+    pn = put(_padded_panel(panel, C))
+    for ep in (1, 2):
+        idx = idx1 if ep == 1 else _one_contig_index(ep, w=5)[0]
+        total = 0
+        for shard in range(ep):
+            bt = put(np.ascontiguousarray(idx.btable[shard]))
+            args = (h, v, bt, idx.bucket_shift, idx.two_choice, ep, shard, C)
+            for parts in {1, ep}:
+                got = sharded_votes(*args, parts=parts)
+                torch.cuda.synchronize()
+                assert torch.equal(got, sharded_votes_ref(*args,
+                                                          parts=parts))
+            total = total + sharded_votes(*args)
+        assert int(total[0].sum()) > 0
+        outs = policy_from_stats(total, pn, 3, 1000)
+        want = policy_from_stats_ref(total, pn, 3, 1000)
+        for g, w in zip(outs, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_sharded_votes_rejects_a_misaligned_table(cuda_device):
