@@ -2,11 +2,22 @@
 """On-card smoke run of the PyTorch/CUDA port (cornetto_tpu_torch).
 
     python3 chip_smoke.py [--seed N] [--votes-against DIR]
+    python3 chip_smoke.py --sanitize-cases | --sanitize
 
 Needs one NVIDIA GPU with the CUDA toolkit (nvcc).  Run from the root of a
 checkout.  With --votes-against DIR (another checkout, such as the parent
 commit's, unpacked under build/), phase 16 also times DIR's votes and
-policy kernels in turns with this checkout's on its batch and index.  It:
+policy kernels in turns with this checkout's on its batch and index.
+
+--sanitize-cases runs only every kernel entry point at the small ragged
+shapes of tests/_torch_ragged_cases.py against its plain version and exits
+1 on any difference.  --sanitize builds the kernels and runs --sanitize-cases four times, under
+compute-sanitizer's memcheck, racecheck, initcheck and synccheck
+(--error-exitcode 1, PYTORCH_NO_CUDA_MEMORY_CACHING=1 so that each
+torch.empty is an allocation of its own), with one line a tool; it fails
+on a missing tool or any report.  It is not a phase of the full run:
+on the H100 this script is run on, every tool refuses the card ("Device
+not supported"; PERF.md section 7).  The full run:
 
 1. prints the card, its power limit and the toolchain;
 2. builds the six kernel sources of cornetto_tpu_torch/csrc;
@@ -802,6 +813,92 @@ def phase_window_kernel(seed: int):
 
 
 CUDA_TESTS = "tests/test_torch_cuda_kernels.py"
+
+
+SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
+
+
+def sanitize_cases():
+    """--sanitize-cases: every case of tests/_torch_ragged_cases.py on the
+    card against its plain version; one JSON line (cases, differences,
+    launches a wrapper); exits 1 on a difference or on a wrapper the
+    cases never launched."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_ragged_cases as rc
+    dev = torch.device("cuda")
+    before = {w.__name__: w.launches for w in rc.WRAPPERS}
+    bad = {}
+    for name in rc.CASES:
+        diff = rc.check(name, dev)
+        if diff:
+            bad[name] = diff
+    launches = {w.__name__: w.launches - before[w.__name__]
+                for w in rc.WRAPPERS}
+    print(json.dumps({"cases": len(rc.CASES), "differ": bad,
+                      "launches": launches}), flush=True)
+    if bad:
+        fail("%d ragged cases differ from their plain versions" % len(bad))
+    if not all(launches.values()):
+        fail("a wrapper was never launched: %s" % launches)
+
+
+def sanitizer_path():
+    """compute-sanitizer of the CUDA toolkit PyTorch found, else the one on
+    PATH, else None (as kernels/_build.py::nvcc_path finds nvcc)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "compute-sanitizer")
+        if os.path.exists(cand):
+            return cand
+    return shutil.which("compute-sanitizer")
+
+
+def phase_sanitize(work: str):
+    """--sanitize: --sanitize-cases under each compute-sanitizer tool; each
+    tool's whole report goes to build/smoke/sanitize_<tool>.log.  Fails on
+    a missing tool, a tool's non-zero exit or any error it counts."""
+    tool = sanitizer_path()
+    if tool is None:
+        fail("compute-sanitizer not found in $CUDA_HOME/bin or on PATH")
+    ver = subprocess.run([tool, "--version"], capture_output=True,
+                         text=True, timeout=60)
+    log("[19 sanitize] %s: %s" % (tool, " ".join(
+        ver.stdout.strip().splitlines()[-1:])))
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    env.pop("CORNETTO_FORCE_CPU", None)
+    results = []
+    for name in SANITIZER_TOOLS:
+        cmd = [tool, "--tool", name, "--error-exitcode", "1",
+               sys.executable, os.path.join(HERE, "chip_smoke.py"),
+               "--sanitize-cases"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        out = proc.stdout + proc.stderr
+        with open(os.path.join(work, "sanitize_%s.log" % name), "w") as f:
+            f.write(out)
+        counts = [int(x) for x in re.findall(
+            r"(?:ERROR SUMMARY|RACECHECK SUMMARY): (\d+)", out)]
+        launched = [json.loads(ln) for ln in proc.stdout.splitlines()
+                    if ln.startswith('{"cases"')]
+        refused = "Device not supported" in out
+        results.append(dict(tool=name, exit=proc.returncode,
+                            errors=sum(counts), seconds=round(secs, 2),
+                            refused=refused,
+                            launches=launched[0]["launches"] if launched
+                            else None))
+        log("[19 sanitize] %s: exit %d, %d errors, %.2f s%s, kernels "
+            "launched: %s" % (name, proc.returncode, sum(counts), secs,
+                              " (the tool refused the card: Device not "
+                              "supported)" if refused else "",
+                              results[-1]["launches"]))
+    print(json.dumps({"sanitize": results}), flush=True)
+    if any(r["exit"] or r["errors"] or r["launches"] is None
+           for r in results):
+        fail("compute-sanitizer: a tool failed or reported errors (see "
+             "build/smoke/sanitize_<tool>.log)")
 
 
 def phase_cuda_tests(work: str):
@@ -3634,6 +3731,12 @@ def main():
                     "phase 16 times in turns with this one's")
     # one process of those turns, started by the script itself
     ap.add_argument("--votes-time", help=argparse.SUPPRESS)
+    ap.add_argument("--sanitize-cases", action="store_true",
+                    help="only every kernel at small ragged shapes against "
+                    "its plain version")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="only --sanitize-cases under each "
+                    "compute-sanitizer tool")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cornetto_tpu_torch")):
         fail("cornetto_tpu_torch/ not found beside chip_smoke.py: run it "
@@ -3648,6 +3751,16 @@ def main():
     if args.votes_time is not None:
         sys.path.insert(0, os.path.abspath(args.votes_time))
         votes_time(args)
+        return
+    if args.sanitize_cases:
+        sanitize_cases()
+        return
+    if args.sanitize:
+        phase_device()
+        phase_build()
+        work = os.path.join(HERE, "build", "smoke")
+        os.makedirs(work, exist_ok=True)
+        phase_sanitize(work)
         return
 
     clock = [time.perf_counter()]

@@ -27,6 +27,28 @@ import numpy as np
 Row = Tuple[str, int, int]
 
 
+class IntervalSet:
+    """A list of BED3 rows with vectorised columnar access."""
+
+    def __init__(self, rows: Sequence[Row]):
+        self.rows: List[Row] = list(rows)
+
+    @classmethod
+    def from_arrays(cls, names, starts, ends):
+        return cls(list(zip(names, (int(x) for x in starts),
+                            (int(x) for x in ends))))
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __iter__(self):
+        return iter(self.rows)
+
+    def write(self, out):
+        for c, s, e in self.rows:
+            out.write("%s\t%d\t%d\n" % (c, s, e))
+
+
 def bed_sort(rows: Sequence[Row]) -> List[Row]:
     """`bedtools sort`: chrom lexicographic (byte order), start, end."""
     return sorted(rows, key=lambda r: (r[0].encode(), r[1], r[2]))

@@ -44,6 +44,18 @@ def read_bed3(path: str, context: str = "bed") -> Iterator[Tuple[str, int, int]]
             yield ref, beg, end
 
 
+def write_bed3(out, rows) -> None:
+    for ref, beg, end in rows:
+        out.write("%s\t%d\t%d\n" % (ref, beg, end))
+
+
+def read_bed_regions(path: str):
+    """BED rows -> 'chr:start-end' strings (reference: read_bed_regions,
+    src/misc_p.c:19-79)."""
+    return ["%s:%d-%d" % (ref, beg, end)
+            for ref, beg, end in read_bed3(path, "regions")]
+
+
 class DepthArrays:
     """Per-contig uint16 depth arrays for a (total, mq) bedgraph pair."""
 

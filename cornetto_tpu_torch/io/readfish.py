@@ -6,6 +6,13 @@ src/bigenough_main.c:208-211 emits the +/- CSV rows)."""
 from typing import Iterable, Tuple
 
 
+def write_targets_csv(out, rows: Iterable[Tuple[str, int, int]]) -> None:
+    """Both-strand target rows, one interval per line per strand."""
+    for c, s, e in rows:
+        out.write("%s,%d,%d,+\n" % (c, s, e))
+        out.write("%s,%d,%d,-\n" % (c, s, e))
+
+
 def write_readfish_toml(out, *, reference_mmi: str, targets_csv: str,
                         deplete: bool = True,
                         channels: Tuple[int, int] = (1, 512)) -> None:

@@ -19,8 +19,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+# -lineinfo adds the line tables that let compute-sanitizer's reports name
+# a .cu line; it leaves the generated code as it is
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _libs = {}
 # name -> (seconds, nvcc's stderr incl. the -Xptxas -v register report)

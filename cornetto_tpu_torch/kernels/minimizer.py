@@ -131,6 +131,24 @@ def pack_reads(codes: np.ndarray):
     return packed, bits
 
 
+def pack_codes(codes: torch.Tensor):
+    """``pack_reads`` on a tensor, on its own device: (B, L) uint8 codes
+    -> (packed (B, ceil(L/4)) uint8, nmask (B, ceil(L/8)) uint8)."""
+    B, L = codes.shape
+    c4 = torch.zeros((B, -(-L // 4) * 4), dtype=torch.uint8,
+                     device=codes.device)
+    c4[:, :L] = codes & 3
+    packed = (c4[:, 0::4] | (c4[:, 1::4] << 2) | (c4[:, 2::4] << 4)
+              | (c4[:, 3::4] << 6))
+    n8 = torch.zeros((B, -(-L // 8) * 8), dtype=torch.uint8,
+                     device=codes.device)
+    n8[:, :L] = codes >= 4
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=codes.device)
+    bits = (n8.view(B, -1, 8) * weights).sum(-1, dtype=torch.uint8)
+    return packed, bits
+
+
 U32_MASK = 0xFFFFFFFF
 SENTINEL = 0xFFFFFFFF   # hash of an invalid k-mer / empty window
 

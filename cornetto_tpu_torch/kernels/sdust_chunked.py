@@ -37,7 +37,9 @@ turns it into a DENSE tiling so the DP can run lane-parallel:
     rare path).
 
 The port's kernels/sdust.py runs the DP of each chunk as one row of its
-CUDA kernel and reassembles the rows here.
+CUDA kernel and reassembles the rows here; sdust_chunked_oracle() runs the
+decomposition with the bit-exact sequential (native) DP per chunk, the
+correctness harness of that tiling.
 """
 
 from typing import List, Tuple
@@ -127,3 +129,21 @@ def run_host_spans(seq: bytes, host, T: int, W: int):
         out.append(((q, a, b), sdust_exact(seq[q:stop], T=T, W=W)))
     return out
 
+
+def sdust_chunked_oracle(seq: bytes, T: int = 20, W: int = DEF_W,
+                         core: int = 512) -> List[Tuple[int, int]]:
+    """The decomposition with the bit-exact sequential DP per chunk —
+    must equal sdust(seq); the correctness harness of the kernel's
+    tiling (a chunk a row)."""
+    # the per-chunk DP is the native port: the pure-Python DP at
+    # dense-satellite rates would make this harness minutes-slow
+    from cornetto_tpu_torch.kernels.sdust_core import _NT4
+    from cornetto_tpu_torch.native.sdust import sdust
+    codes = _NT4[np.frombuffer(seq, dtype=np.uint8)]
+    device, host = plan_chunks(codes, core, W)
+    per_chunk = [sdust(seq[c0:stop], T=T, W=W)
+                 for _a, _b, c0, stop in device]
+    host_parts = [((q, a, b), sdust(seq[q:min(b + W + 8, len(codes))],
+                                    T=T, W=W))
+                  for q, a, b in host]
+    return assemble(per_chunk, device, host_parts, W)

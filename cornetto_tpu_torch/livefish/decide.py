@@ -47,7 +47,7 @@ from cornetto_tpu_torch.dist.multihost import local_device
 from cornetto_tpu_torch.kernels.decide import (  # noqa: F401 (re-exported)
     _decide_from_minima, _lookup_votes, _mean_split, decide_packed)
 from cornetto_tpu_torch.kernels.extract import extract_minima
-from cornetto_tpu_torch.kernels.minimizer import pack_reads
+from cornetto_tpu_torch.kernels.minimizer import pack_codes, pack_reads
 from cornetto_tpu_torch.kernels.votes import policy_from_stats, sharded_votes
 from cornetto_tpu_torch.livefish.index import MinimizerIndex
 
@@ -94,6 +94,22 @@ def shard_state(index: MinimizerIndex, shard: int, panel_mask: np.ndarray,
         k=int(index.k), w=int(index.w),
         bucket_shift=int(index.bucket_shift),
         two_choice=bool(getattr(index, "two_choice", False)))
+
+
+def decision_core(btable, reads, panel_mask, k: int, w: int, min_hits: int,
+                  bin_size: int, bucket_shift: int, two_choice: bool = True):
+    """Decision step on unpacked reads: (b, L) uint8 codes (4 = N), packed
+    on their own device (kernels.minimizer.pack_codes), then
+    ``decision_core_packed``.  Returns the six (b,) outputs: decision,
+    best contig, est position, hits, unambiguous hits and the second
+    position estimate.  The JAX function's ep_axis / ep_size (a shard of
+    the table inside shard_map) are the sharded engine's here."""
+    packed, nmask = pack_codes(reads)
+    return decision_core_packed(btable, packed, nmask, panel_mask,
+                                L=reads.shape[1], k=k, w=w,
+                                min_hits=min_hits, bin_size=bin_size,
+                                bucket_shift=bucket_shift,
+                                two_choice=two_choice)
 
 
 def decision_core_packed(btable, packed, nmask, panel_mask, L: int, k: int,

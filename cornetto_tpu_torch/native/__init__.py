@@ -3,7 +3,8 @@ compiler and loaded via ctypes.  Each source here is compiled with ``cc``
 into ``build/native/`` at the root of the checkout (beside the CUDA
 kernels' ``build/kernels/``), never into the package directory.  Every
 native kernel has a pure-Python twin used as the correctness oracle and
-fallback."""
+fallback.  ``CORNETTO_NATIVE_SANITIZE=1`` builds them under ASan + UBSan
+(``_sanitize``)."""
 
 import ctypes
 import os
@@ -18,8 +19,17 @@ _LOCK = threading.Lock()
 _LIBS = {}
 
 
+def _sanitize() -> bool:
+    """CORNETTO_NATIVE_SANITIZE=1 builds every native kernel with ASan +
+    UBSan into ``_<name>.asan.so`` beside the plain builds.  The host
+    python is not ASan-linked, so the caller must LD_PRELOAD libasan and
+    libubsan (tests/test_torch_sanitize.py does both)."""
+    return os.environ.get("CORNETTO_NATIVE_SANITIZE", "") == "1"
+
+
 def _build(name: str, source: str, cflags=("-O3",)) -> str:
-    so_path = os.path.join(BUILD_DIR, "_%s.so" % name)
+    suffix = ".asan" if _sanitize() else ""
+    so_path = os.path.join(BUILD_DIR, "_%s%s.so" % (name, suffix))
     src_path = os.path.join(_HERE, source)
     if (os.path.exists(so_path)
             and os.path.getmtime(so_path) >= os.path.getmtime(src_path)):
@@ -27,6 +37,9 @@ def _build(name: str, source: str, cflags=("-O3",)) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (so_path, os.getpid())
     cc = os.environ.get("CC", "cc")
+    if _sanitize():
+        cflags = (*cflags, "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=all", "-g")
     cmd = [cc, *cflags, "-shared", "-fPIC", "-pthread", src_path, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
     os.replace(tmp, so_path)    # atomic: concurrent builds agree

@@ -177,10 +177,10 @@ int64_t sdust_mask(const unsigned char *seq, int64_t l_seq, int T, int W,
         }
     }
     n = S.res_n;
-    if (n <= out_cap)
-        memcpy(out, S.res, n * sizeof(int64_t));
-    else
+    if (n > out_cap)
         n = -n;
+    else if (n > 0)     /* S.res is NULL when nothing was masked */
+        memcpy(out, S.res, n * sizeof(int64_t));
     free(S.ring);
     free(S.P);
     free(S.res);

@@ -49,6 +49,11 @@ def verbose(msg: str) -> None:
         _emit("[VERBOSE]", msg)
 
 
+def debug(msg: str) -> None:
+    if _log_level >= LOG_DBUG:
+        _emit("[DEBUG]", msg)
+
+
 def die(msg: str, code: int = 1) -> "NoReturn":  # noqa: F821
     error(msg)
     sys.exit(code)

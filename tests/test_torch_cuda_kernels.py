@@ -2,7 +2,12 @@
 minimizer extraction, the fused decision step (extraction, lookup, votes
 and policy in one launch), the sharded engine's shard-masked votes and its
 policy, window sums and window stats, the SDUST DP (against the port's
-sequential native DP too) and the two telomere kernels.
+sequential native DP too) and the two telomere kernels; and every entry
+point at the ragged shapes of tests/_torch_ragged_cases.py with the caching
+allocator's free blocks poisoned first, so that an output element a kernel
+leaves unwritten differs from the plain version, and again with every
+tensor against an unmapped guard region (tests/_torch_fence_alloc.c), so
+that an access outside a tensor faults.
 Integers and booleans throughout; tolerance: exact equality.  Inputs from a
 numpy seed.
 
@@ -17,6 +22,9 @@ neither ``jax`` nor ``cornetto_tpu`` and uses no fixture of
 hold the plain versions against the JAX package."""
 
 import functools
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -44,6 +52,7 @@ from cornetto_tpu_torch.kernels.window_sum import (n_windows, window_stats,
                                                    window_sums_ref)
 from cornetto_tpu_torch.native.sdust import sdust
 import _decide_cases as dc  # tests/, on sys.path under pytest
+import _torch_ragged_cases as rc
 
 pytestmark = pytest.mark.cuda
 
@@ -840,3 +849,83 @@ def test_sharded_votes_rejects_a_misaligned_table(cuda_device):
     with pytest.raises(ValueError):
         sharded_votes(h, v, view, idx.bucket_shift, True, 2, 0, 3)
     assert sharded_votes.launches == before
+
+
+# ------------------------------------- every output element written (0xA5)
+
+@pytest.mark.parametrize("n", [700, 300_000, 3 << 20, 50 << 20])
+def test_poison_reaches_torch_empty(cuda_device, n):
+    """After poison_freed_blocks a torch.empty of the small pool (700 B,
+    300 kB) or the large one (3 MiB, 50 MiB) holds 0xA5, with live inputs
+    in partly used segments beside it."""
+    keep = [torch.ones(m, dtype=torch.uint8, device=cuda_device)
+            for m in (100, 5000, 70_000, 1_500_000)]
+    rc.poison_freed_blocks(cuda_device)
+    t = torch.empty(n, dtype=torch.uint8, device=cuda_device)
+    assert bool((t == rc.POISON).all())
+    assert all(bool((k == 1).all()) for k in keep)
+
+
+@pytest.mark.parametrize("name", sorted(rc.CASES))
+def test_every_output_element_written(cuda_device, name):
+    """The wrapper's outputs (torch.empty) land on 0xA5 and equal the
+    plain version's: no element is left unwritten, at ragged shapes."""
+    assert rc.check(name, cuda_device, poison=True) == []
+
+
+# ------------------------------ guard pages (tests/_torch_fence_alloc.c)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fenced(code: str, mode: str):
+    """Run ``code`` in a fresh process whose allocations sit against guard
+    regions (``mode`` after / before)."""
+    prelude = ("import sys, torch\nsys.path.insert(0, 'tests')\n"
+               "import _torch_ragged_cases as rc\n"
+               "rc.install_fence(%r)\n" % mode)
+    env = {k: v for k, v in os.environ.items() if k != "CORNETTO_FORCE_CPU"}
+    return subprocess.run([sys.executable, "-c", prelude + code], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+# window_sums' C entry point on a 4096-int32 tensor: a read of the whole
+# tensor, then one of n elements from x + shift
+WINDOW_READS = """
+from cornetto_tpu_torch.kernels.window_sum import _lib
+x = torch.ones(4096, dtype=torch.int32, device="cuda")
+out = torch.empty(1, dtype=torch.int64, device="cuda")
+for n, shift in ((4096, 0), (%d, %d)):
+    err = _lib()(x.data_ptr() + 4 * shift, 0, 1, n, n, 1, 1, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    torch.cuda.synchronize()
+    print("sum", n, shift, int(out.item()), flush=True)
+"""
+
+
+@pytest.mark.parametrize("mode", ["after", "before"])
+def test_guard_pages_catch_an_access_outside_a_tensor(cuda_device, mode):
+    """The fence's own check, in one process: a read of the whole tensor
+    passes; then one that runs a megabyte past its end (after) or starts
+    a megabyte before its start (before) faults."""
+    far = (4096 + (1 << 18), 0) if mode == "after" else (4096, -(1 << 18))
+    proc = _fenced(WINDOW_READS % far, mode)
+    assert "sum 4096 0 4096" in proc.stdout, proc.stderr[-2000:]
+    assert proc.returncode != 0 and "sum %d %d" % far not in proc.stdout
+    assert "illegal memory access" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("mode", ["after", "before"])
+def test_ragged_cases_inside_guard_pages(cuda_device, mode):
+    """Every ragged case with each tensor against a guard region: no
+    kernel reads or writes past a tensor's 16-byte granule (after) or
+    before its start (before), and each result equals the plain
+    version's."""
+    proc = _fenced("dev = torch.device('cuda')\n"
+                   "for name in rc.CASES:\n"
+                   "    assert rc.check(name, dev) == [], name\n"
+                   "print('cases', len(rc.CASES))\n", mode)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "cases %d" % len(rc.CASES) in proc.stdout

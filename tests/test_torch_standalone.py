@@ -5,10 +5,13 @@ tests/_torch_dist_worker.py, nor the crash-injected stream's ranks and
 their test, tests/_torch_ckpt_worker.py and
 tests/test_torch_checkpoint_failure.py, nor the
 card tests of tests/test_torch_cuda_kernels.py and their cases in
-tests/_decide_cases.py, which run where JAX is not installed) imports the
-JAX package, and the
-port's CLI entry points not covered by the other no-jax tests leave both
-``jax`` and ``cornetto_tpu`` out of ``sys.modules`` in a fresh interpreter.
+tests/_decide_cases.py and tests/_torch_ragged_cases.py, which run where
+JAX is not installed, nor the
+native sanitizer lane, tests/test_torch_sanitize.py) imports the JAX
+package, and the port's CLI entry points not covered by the other no-jax
+tests, and the library names of tests/test_torch_library_surface.py, leave
+both ``jax`` and ``cornetto_tpu`` out of ``sys.modules`` in a fresh
+interpreter.
 The two packages share only the ``.npz`` index format
 (tests/test_torch_host_copies.py)."""
 
@@ -27,9 +30,11 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in
      "chip_smoke.py",
      "tests/_decide_cases.py",
      "tests/_torch_ckpt_worker.py",
+     "tests/_torch_ragged_cases.py",
      "tests/_torch_dist_worker.py",
      "tests/test_torch_checkpoint_failure.py",
-     "tests/test_torch_cuda_kernels.py"]
+     "tests/test_torch_cuda_kernels.py",
+     "tests/test_torch_sanitize.py"]
 
 
 def _jax_package(name: str) -> bool:
@@ -83,6 +88,8 @@ def test_sources_listed():
         assert "cornetto_tpu_torch/" + path in SOURCES
     assert "tests/_torch_ckpt_worker.py" in SOURCES
     assert "tests/test_torch_checkpoint_failure.py" in SOURCES
+    assert "tests/test_torch_sanitize.py" in SOURCES
+    assert "tests/_torch_ragged_cases.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)
@@ -297,3 +304,63 @@ def test_new_entry_points_import_neither_jax_nor_the_jax_package(
                 "sv/structural_split.vcf.gz", "sx/s.hap2.fasta",
                 "dx/s.duplex_split.stats"):
         assert (tmp_path / out).exists(), out
+
+
+# the library names the port adds beside its copies, and the package
+# re-exports (tests/test_torch_library_surface.py holds each to JAX's)
+LIBRARY_NAMES = {
+    "cornetto_tpu_torch.io": [
+        "FastxRecord", "read_fastx", "open_maybe_gzip", "read_bed3",
+        "write_bed3", "read_bedgraph_pair", "PafRec", "parse_paf_line",
+        "read_paf"],
+    "cornetto_tpu_torch.intervals": [
+        "IntervalSet", "bed_sort", "gnu_sort_bed", "merge", "subtract",
+        "intersect_wa"],
+    "cornetto_tpu_torch.utils": [
+        "c_round", "c_div", "wrap_i32", "fmt_g", "fmt_float", "strnum_cmp",
+        "strnum_key", "mixed_numcompare", "mixed_key", "parse_num_suffix"],
+    "cornetto_tpu_torch.livefish.decide": ["decision_core"],
+    "cornetto_tpu_torch.kernels.minimizer": ["pack_codes"],
+    "cornetto_tpu_torch.kernels.motif": ["match_positions", "tandem_runs"],
+    "cornetto_tpu_torch.kernels.sdust_chunked": ["sdust_chunked_oracle"],
+    "cornetto_tpu_torch.io.bed": ["write_bed3", "read_bed_regions"],
+    "cornetto_tpu_torch.io.readfish": ["write_targets_csv"],
+    "cornetto_tpu_torch.utils.logging": ["debug"],
+}
+
+
+def test_library_names_import_neither_jax_nor_the_jax_package():
+    """Each name of LIBRARY_NAMES imports in a fresh interpreter, and
+    calling the new ones leaves jax and cornetto_tpu unloaded."""
+    code = (
+        "import importlib, io, json, sys\n"
+        "names = json.loads(sys.argv[1])\n"
+        "for mod, attrs in names.items():\n"
+        "    m = importlib.import_module(mod)\n"
+        "    for a in attrs:\n"
+        "        assert hasattr(m, a), (mod, a)\n"
+        "import numpy as np, torch\n"
+        "from cornetto_tpu_torch.kernels import motif, sdust_chunked\n"
+        "from cornetto_tpu_torch.intervals import IntervalSet\n"
+        "from cornetto_tpu_torch.livefish.decide import decision_core\n"
+        "seq = np.frombuffer(b'TTAGGGTTAGGGAC', dtype=np.uint8)\n"
+        "assert motif.tandem_runs(motif.match_positions(seq, 'TTAGGG'), 6)"
+        " == [(0, 12, 12)]\n"
+        "assert sdust_chunked.sdust_chunked_oracle(b'A' * 300) == "
+        "[(0, 300)]\n"
+        "IntervalSet.from_arrays(['c'], [1], [2]).write(io.StringIO())\n"
+        "btable = torch.zeros((1 << 4, 8), dtype=torch.int32)\n"
+        "out = decision_core(btable, torch.zeros((2, 40), dtype=torch.uint8),"
+        " torch.zeros((2, 3), dtype=torch.bool), k=15, w=10, min_hits=1,"
+        " bin_size=1000, bucket_shift=28)\n"
+        "assert len(out) == 6\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or "
+        "m == 'cornetto_tpu' or m.startswith('cornetto_tpu.'))\n"
+        "assert not bad, bad\n")
+    import json
+    env = dict(os.environ, CORNETTO_FORCE_CPU="1", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, json.dumps(LIBRARY_NAMES)],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
