@@ -7,6 +7,8 @@ subcommand is the port's copy of the JAX package's host tool or pipeline.
 The device is cuda unless CORNETTO_FORCE_CPU=1
 (cornetto_tpu_torch.device)."""
 
+import importlib
+import os
 import sys
 
 from cornetto_tpu_torch.utils import timing
@@ -77,109 +79,72 @@ def print_usage(fp) -> int:
     return 1 if fp is sys.stderr else 0
 
 
+# subcommand -> (module under cornetto_tpu_torch, function, keyword args)
+COMMANDS = {
+    "boringbits": ("tools.boringbits", "main", {"boring": True}),
+    "noboringbits": ("tools.boringbits", "main", {"boring": False}),
+    "create-panel": ("pipelines.create_cornetto", "main", {}),
+    "flow": ("flow.runner", "main", {}),
+    "sdust": ("tools.sdust", "main", {}),
+    "telofind": ("tools.telofind", "main", {}),
+    "telowin": ("tools.telowin", "main", {}),
+    "telobreaks": ("tools.telobreaks", "main", {}),
+    "bigenough": ("tools.bigenough", "main", {}),
+    "fixasm": ("tools.fixasm", "main", {}),
+    "asmstats": ("tools.asmstats", "main", {}),
+    "nx": ("tools.nx", "main", {}),
+    "report": ("tools.report", "main", {}),
+    "telocontigs": ("tools.telocontigs", "main", {}),
+    "fa2bed": ("tools.fa2bed", "main", {}),
+    "seq": ("tools.seq", "main", {}),
+    "depth": ("tools.depth", "main", {}),
+    "bammerge": ("tools.depth", "merge_main", {}),
+    "recreate-panel": ("pipelines.recreate_cornetto", "main", {}),
+    "telostats": ("pipelines.telostats", "main", {}),
+    "asmstats-pipeline": ("pipelines.asmstats_sh", "main", {}),
+    "minidot": ("tools.minidot", "main", {}),
+    "minidotplot": ("pipelines.minidotplot", "main", {}),
+    "hapnetto": ("pipelines.hapnetto", "main", {}),
+    "refine": ("pipelines.refine", "main", {}),
+    "flow-eval": ("flow.evaljobs", "eval_main", {}),
+    "flow-sv": ("flow.evaljobs", "sv_main", {}),
+    "flow-simplex": ("flow.simplex", "main", {}),
+    "gfa2fa": ("io.gfa", "main", {}),
+    "livefish": ("livefish.cli", "main", {}),
+}
+
+
 def main(argv=None) -> int:
+    """Run the subcommand argv[1] on argv[2:].  With CORNETTO_PROFILE=<dir>
+    it runs under a torch.profiler trace written to
+    <dir>/<subcommand>/trace.json (utils.profiling.maybe_trace), and the
+    program's spans are logged at VERBOSE level at its end; without it the
+    CLI prints what the JAX package's prints."""
     argv = list(sys.argv if argv is None else argv)
     realtime0 = timing.realtime()
     if len(argv) < 2:
         return print_usage(sys.stderr)
     cmd = argv[1]
     rest = argv[2:]
-    if cmd in ("boringbits", "noboringbits"):
-        from cornetto_tpu_torch.tools import boringbits
-        ret = boringbits.main(rest, boring=cmd == "boringbits")
-    elif cmd == "create-panel":
-        from cornetto_tpu_torch.pipelines import create_cornetto
-        ret = create_cornetto.main(rest)
-    elif cmd == "flow":
-        from cornetto_tpu_torch.flow import runner
-        ret = runner.main(rest)
-    elif cmd == "sdust":
-        from cornetto_tpu_torch.tools import sdust
-        ret = sdust.main(rest)
-    elif cmd == "telofind":
-        from cornetto_tpu_torch.tools import telofind
-        ret = telofind.main(rest)
-    elif cmd == "telowin":
-        from cornetto_tpu_torch.tools import telowin
-        ret = telowin.main(rest)
-    elif cmd == "telobreaks":
-        from cornetto_tpu_torch.tools import telobreaks
-        ret = telobreaks.main(rest)
-    elif cmd == "bigenough":
-        from cornetto_tpu_torch.tools import bigenough
-        ret = bigenough.main(rest)
-    elif cmd == "fixasm":
-        from cornetto_tpu_torch.tools import fixasm
-        ret = fixasm.main(rest)
-    elif cmd == "asmstats":
-        from cornetto_tpu_torch.tools import asmstats
-        ret = asmstats.main(rest)
-    elif cmd == "nx":
-        from cornetto_tpu_torch.tools import nx
-        ret = nx.main(rest)
-    elif cmd == "report":
-        from cornetto_tpu_torch.tools import report
-        ret = report.main(rest)
-    elif cmd == "telocontigs":
-        from cornetto_tpu_torch.tools import telocontigs
-        ret = telocontigs.main(rest)
-    elif cmd == "fa2bed":
-        from cornetto_tpu_torch.tools import fa2bed
-        ret = fa2bed.main(rest)
-    elif cmd == "seq":
-        from cornetto_tpu_torch.tools import seq
-        ret = seq.main(rest)
-    elif cmd == "depth":
-        from cornetto_tpu_torch.tools import depth
-        ret = depth.main(rest)
-    elif cmd == "bammerge":
-        from cornetto_tpu_torch.tools import depth
-        ret = depth.merge_main(rest)
-    elif cmd == "recreate-panel":
-        from cornetto_tpu_torch.pipelines import recreate_cornetto
-        ret = recreate_cornetto.main(rest)
-    elif cmd == "telostats":
-        from cornetto_tpu_torch.pipelines import telostats
-        ret = telostats.main(rest)
-    elif cmd == "asmstats-pipeline":
-        from cornetto_tpu_torch.pipelines import asmstats_sh
-        ret = asmstats_sh.main(rest)
-    elif cmd == "minidot":
-        from cornetto_tpu_torch.tools import minidot
-        ret = minidot.main(rest)
-    elif cmd == "minidotplot":
-        from cornetto_tpu_torch.pipelines import minidotplot
-        ret = minidotplot.main(rest)
-    elif cmd == "hapnetto":
-        from cornetto_tpu_torch.pipelines import hapnetto
-        ret = hapnetto.main(rest)
-    elif cmd == "refine":
-        from cornetto_tpu_torch.pipelines import refine
-        ret = refine.main(rest)
-    elif cmd == "flow-eval":
-        from cornetto_tpu_torch.flow import evaljobs
-        ret = evaljobs.eval_main(rest)
-    elif cmd == "flow-sv":
-        from cornetto_tpu_torch.flow import evaljobs
-        ret = evaljobs.sv_main(rest)
-    elif cmd == "flow-simplex":
-        from cornetto_tpu_torch.flow import simplex
-        ret = simplex.main(rest)
-    elif cmd == "gfa2fa":
-        from cornetto_tpu_torch.io import gfa
-        ret = gfa.main(rest)
-    elif cmd == "livefish":
-        from cornetto_tpu_torch.livefish import cli as livefish_cli
-        ret = livefish_cli.main(rest)
-    elif cmd in ("--version", "-V"):
+    if cmd in ("--version", "-V"):
         sys.stdout.write("cornetto-tpu %s\n" % __version__)
         return 0
-    elif cmd in ("--help", "-h"):
+    if cmd in ("--help", "-h"):
         return print_usage(sys.stdout)
-    else:
+    if cmd not in COMMANDS:
         sys.stderr.write("[cornetto] Unrecognised command %s\n" % cmd)
         return print_usage(sys.stderr)
-
+    module, func, kw = COMMANDS[cmd]
+    run = getattr(importlib.import_module("cornetto_tpu_torch." + module),
+                  func)
+    if os.environ.get("CORNETTO_PROFILE"):
+        from cornetto_tpu_torch.utils import profiling
+        profiling.reset()
+        with profiling.maybe_trace(cmd):
+            ret = run(rest, **kw)
+        profiling.log_tally()
+    else:
+        ret = run(rest, **kw)
     timing.print_footer(__version__, argv[1:], realtime0)
     return ret
 

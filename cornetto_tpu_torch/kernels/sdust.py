@@ -25,7 +25,6 @@ word's count): that needs T < 5, so ``sdust_device`` takes T >= 5 and
 """
 
 import ctypes
-import time
 
 import numpy as np
 import torch
@@ -37,6 +36,7 @@ from cornetto_tpu_torch.kernels.sdust_chunked import (DEF_W, assemble,
                                                       run_host_spans)
 from cornetto_tpu_torch.kernels.sdust_core import _NT4
 from cornetto_tpu_torch.native.sdust import sdust as sdust_exact
+from cornetto_tpu_torch.utils import profiling
 
 _KERNEL = "sdust"
 SD_WLEN = 3
@@ -470,46 +470,43 @@ def sdust_device(seq: bytes, T: int = 20, W: int = DEF_W, core: int = 2048,
     host_span_bases, heavy_rows), its seconds per part (plan, h2d, kernel,
     readback, overflow, host_spans, assemble) and the kernel's passes in
     milliseconds (light_ms, heavy_ms) to it, synchronising the card at the
-    end of each part."""
+    end of each part.  Under a profiler each part is the span
+    ``sdust.<part>``, timed by the same clock (utils.profiling.lap)."""
     check_params(W, T)
     dev = resolve_device(device)
     acc = {} if stats is None else stats
-    last = [time.perf_counter()]
 
     def lap(part):
-        if stats is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        acc[part] = acc.get(part, 0.0) + now - last[0]
-        last[0] = now
+        return profiling.lap("sdust." + part, stats, dev)
 
-    chunks, host, padded, a, clen = plan_rows(
-        _NT4[np.frombuffer(seq, dtype=np.uint8)], W, core)
+    with lap("plan"):
+        chunks, host, padded, a, clen = plan_rows(
+            _NT4[np.frombuffer(seq, dtype=np.uint8)], W, core)
     ctx = 4 * W
-    lap("plan")
     per_chunk = []
     overflow = np.zeros(0, dtype=bool)
     if chunks:
-        codes_t = torch.from_numpy(padded).to(dev)
-        off_t = torch.from_numpy(a).to(dev)
-        lap("h2d")
-        out = sdust_dp(codes_t, off_t, clen, T, W, stats=stats)
-        lap("kernel")
-        per_row, overflow = _row_lists(*out, max_intervals(clen))
-        lap("readback")
-        for r, (ca, _b, c0, stop) in enumerate(chunks):
-            if overflow[r]:
-                per_chunk.append(sdust_exact(seq[c0:stop], T=T, W=W))
-            elif per_row[r]:
-                d = ca - ctx - c0          # row-local -> slice-local
-                per_chunk.append([(s + d, f + d) for s, f in per_row[r]])
-            else:
-                per_chunk.append(per_row[r])
-        lap("overflow")
-    host_parts = run_host_spans(seq, host, T, W)
-    lap("host_spans")
-    res = assemble(per_chunk, chunks, host_parts, W)
-    lap("assemble")
+        with lap("h2d"):
+            codes_t = torch.from_numpy(padded).to(dev)
+            off_t = torch.from_numpy(a).to(dev)
+        with lap("kernel"):
+            out = sdust_dp(codes_t, off_t, clen, T, W, stats=stats)
+        with lap("readback"):
+            per_row, overflow = _row_lists(*out, max_intervals(clen))
+        with lap("overflow"):
+            for r, (ca, _b, c0, stop) in enumerate(chunks):
+                if overflow[r]:
+                    per_chunk.append(sdust_exact(seq[c0:stop], T=T, W=W))
+                elif per_row[r]:
+                    d = ca - ctx - c0          # row-local -> slice-local
+                    per_chunk.append([(s + d, f + d)
+                                      for s, f in per_row[r]])
+                else:
+                    per_chunk.append(per_row[r])
+    with lap("host_spans"):
+        host_parts = run_host_spans(seq, host, T, W)
+    with lap("assemble"):
+        res = assemble(per_chunk, chunks, host_parts, W)
     for key, n in (("chunks", len(chunks)),
                    ("overflow_rows", int(overflow.sum())),
                    ("host_span_bases", sum(min(b + W + 8, len(seq)) - q

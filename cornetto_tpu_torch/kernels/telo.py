@@ -20,13 +20,13 @@ positions with ``scan_runs_from_positions``.
 """
 
 import ctypes
-import time
 
 import numpy as np
 import torch
 
 from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.kernels import _build
+from cornetto_tpu_torch.utils import profiling
 
 _KERNEL = "telo"
 
@@ -191,29 +191,18 @@ def telo_match_positions(codes: torch.Tensor, motif_codes,
     compacts on the host with np.flatnonzero: no TPU kernel is replaced by
     the library call.)  stats: optional dict; the call adds the seconds of
     the mask ("kernel") and of the compaction ("compact") to it,
-    synchronising the card at the end of each."""
+    synchronising the card at the end of each: the spans
+    ``telofind.kernel`` and ``telofind.compact`` under a profiler."""
     if not isinstance(codes, torch.Tensor) or codes.dim() != 1:
         raise TypeError("codes must be a 1-D uint8 tensor")
     n = codes.shape[0]
     motif = tuple(int(c) for c in motif_codes)
     if n < len(motif):
         return torch.zeros(0, dtype=torch.int64, device=codes.device)
-    t0 = time.perf_counter()
-    mask = telo_match_mask(codes.reshape(1, n), motif)
-    t1 = _synced(codes.device, stats)
-    pos = torch.nonzero(mask[0], as_tuple=True)[0]
-    if stats is not None:
-        t2 = _synced(codes.device, stats)
-        stats["kernel"] = stats.get("kernel", 0.0) + t1 - t0
-        stats["compact"] = stats.get("compact", 0.0) + t2 - t1
-    return pos
-
-
-def _synced(device, stats) -> float:
-    """perf_counter(), after synchronising a card when stats are kept."""
-    if stats is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
+    with profiling.lap("telofind.kernel", stats, codes.device):
+        mask = telo_match_mask(codes.reshape(1, n), motif)
+    with profiling.lap("telofind.compact", stats, codes.device):
+        return torch.nonzero(mask[0], as_tuple=True)[0]
 
 
 def telo_run_stats_ref(codes: torch.Tensor, motif_codes,

@@ -31,6 +31,7 @@ import torch
 
 from cornetto_tpu_torch.kernels.minimizer import encode_seq, pack_reads
 from cornetto_tpu_torch.livefish.decide import unpack_fused
+from cornetto_tpu_torch.utils import profiling
 
 # actions
 PROCEED = 0
@@ -115,7 +116,26 @@ class ChunkDecisionEngine:
         """Consume one tick's chunks, return decisions for every event
         (channels whose read is already decided get their standing action
         STOP_RECEIVING silently skipped — readfish stops receiving chunks
-        for them, so emitting nothing is the faithful behavior)."""
+        for them, so emitting nothing is the faithful behavior).
+
+        Under a profiler the tick is the span ``chunks.process``, tiled by
+        ``chunks.stage`` (the event loop), ``chunks.submit`` (a batch's
+        launch; counts ``rows`` launched and ``live`` rows that decide a
+        channel), ``chunks.readback`` (the host waiting on the card and
+        the result's copy) and ``chunks.resolve`` (the decisions built)."""
+        with profiling.span("chunks.process"):
+            with profiling.span("chunks.stage"):
+                batches = self._stage(events)
+            for batch in batches:
+                self._submit(*batch)
+            out: List[ChunkDecision] = []
+            while len(self._inflight) > self.pipeline_depth:
+                out.extend(self._resolve(self._inflight.pop(0)))
+        return out
+
+    def _stage(self, events: Sequence[ChunkEvent]) -> List[tuple]:
+        """The event loop: each event's codes into its channel's buffer;
+        returns the arguments of each batch's _submit."""
         pending: List[int] = []
         for ev in events:
             c = ev.channel
@@ -131,12 +151,8 @@ class ChunkDecisionEngine:
                 self._blen[c] = n + take
             self._chunks[c] += 1
             pending.append(c)
-        for i in range(0, len(pending), self.batch):
-            self._submit(pending[i:i + self.batch])
-        out: List[ChunkDecision] = []
-        while len(self._inflight) > self.pipeline_depth:
-            out.extend(self._resolve(self._inflight.pop(0)))
-        return out
+        return [(pending[i:i + self.batch],)
+                for i in range(0, len(pending), self.batch)]
 
     def drain(self) -> List[ChunkDecision]:
         """Resolve every in-flight batch (end of run / idle tick)."""
@@ -146,51 +162,56 @@ class ChunkDecisionEngine:
         return out
 
     def _submit(self, chans: List[int]) -> None:
-        rows = np.full((self.batch, self.max_len), 4, dtype=np.uint8)
-        rows[:len(chans)] = self._buf[chans]
-        packed, nmask = pack_reads(rows)
-        decide = getattr(self.engine, "decide_packed_fused",
-                         self.engine.decide_packed)
-        res = decide(packed, nmask, self.max_len)
-        # snapshot read ids + chunk counts: by the time this batch is
-        # harvested the channel may have moved on to a new read (decision
-        # arrives too late — dropped, as on a real sequencer) or received
-        # more chunks (decision still valid for its prefix)
-        self._inflight.append((list(chans), res,
-                               self._chunks[chans].copy(),
-                               [self._read_id[c] for c in chans]))
+        with profiling.span("chunks.submit", rows=self.batch,
+                            live=len(chans)):
+            rows = np.full((self.batch, self.max_len), 4, dtype=np.uint8)
+            rows[:len(chans)] = self._buf[chans]
+            packed, nmask = pack_reads(rows)
+            decide = getattr(self.engine, "decide_packed_fused",
+                             self.engine.decide_packed)
+            res = decide(packed, nmask, self.max_len)
+            # snapshot read ids + chunk counts: by the time this batch is
+            # harvested the channel may have moved on to a new read
+            # (decision arrives too late — dropped, as on a real
+            # sequencer) or received more chunks (decision still valid for
+            # its prefix)
+            self._inflight.append((list(chans), res,
+                                   self._chunks[chans].copy(),
+                                   [self._read_id[c] for c in chans]))
 
     def _resolve(self, entry) -> List[ChunkDecision]:
         chans, res, chunks_at, rids = entry
-        if isinstance(res, tuple):
-            d, best, est, nhits = (_host(x) for x in res[:4])
-        else:
-            # the fused (2, B) int32 result: one readback a batch
-            d, best, est, nhits = unpack_fused(_host(res))
-        out: List[ChunkDecision] = []
-        for i, c in enumerate(chans):
-            if c < 0:
-                continue   # scatter-only row (device engine duplicates)
-            if self._read_id[c] != rids[i] or self._done[c]:
-                continue   # read gone or already decided by an older batch
-            mapped = int(nhits[i]) >= self.policy.min_hits
-            if mapped:
-                action = UNBLOCK if d[i] == 0 else STOP_RECEIVING
-            elif chunks_at[i] >= self.policy.max_chunks:
-                action = self.policy.no_map_action
-                if action == PROCEED:
-                    # terminal proceed: stop re-deciding, let it run out
-                    self._done[c] = True
+        with profiling.span("chunks.readback"):
+            if isinstance(res, tuple):
+                d, best, est, nhits = (_host(x) for x in res[:4])
             else:
-                action = PROCEED
-            if action != PROCEED:
-                self._done[c] = True
-            out.append(ChunkDecision(
-                channel=c, read_id=rids[i], action=action,
-                n_chunks=int(chunks_at[i]),
-                contig=int(best[i]) if mapped else -1,
-                pos=int(est[i]) if mapped else -1,
-                nhits=int(nhits[i])))
+                # the fused (2, B) int32 result: one readback a batch
+                d, best, est, nhits = unpack_fused(_host(res))
+        out: List[ChunkDecision] = []
+        with profiling.span("chunks.resolve"):
+            for i, c in enumerate(chans):
+                if c < 0:
+                    continue   # scatter-only row (device engine duplicates)
+                if self._read_id[c] != rids[i] or self._done[c]:
+                    continue   # read gone or decided by an older batch
+                mapped = int(nhits[i]) >= self.policy.min_hits
+                if mapped:
+                    action = UNBLOCK if d[i] == 0 else STOP_RECEIVING
+                elif chunks_at[i] >= self.policy.max_chunks:
+                    action = self.policy.no_map_action
+                    if action == PROCEED:
+                        # terminal proceed: stop re-deciding, let it run out
+                        self._done[c] = True
+                else:
+                    action = PROCEED
+                if action != PROCEED:
+                    self._done[c] = True
+                out.append(ChunkDecision(
+                    channel=c, read_id=rids[i], action=action,
+                    n_chunks=int(chunks_at[i]),
+                    contig=int(best[i]) if mapped else -1,
+                    pos=int(est[i]) if mapped else -1,
+                    nhits=int(nhits[i])))
         return out
 
 
@@ -231,7 +252,7 @@ class DeviceChunkEngine(ChunkDecisionEngine):
                                                 policy.max_chunks)
         self._pad_chan = n_channels          # sacrificial scatter row
 
-    def process(self, events: Sequence[ChunkEvent]) -> List[ChunkDecision]:
+    def _stage(self, events: Sequence[ChunkEvent]) -> List[tuple]:
         pending: List[int] = []
         stage: List[tuple] = []              # (chan, slot, codes)
         for ev in events:
@@ -282,13 +303,8 @@ class DeviceChunkEngine(ChunkDecisionEngine):
             last[c] = i
         pending = [(c if last[c] == i else -1, ln)
                    for i, (c, ln) in enumerate(pending)]
-        for i in range(0, len(pending), self.batch):
-            self._submit_staged(pending[i:i + self.batch],
-                                stage[i:i + self.batch])
-        out: List[ChunkDecision] = []
-        while len(self._inflight) > self.pipeline_depth:
-            out.extend(self._resolve(self._inflight.pop(0)))
-        return out
+        return [(pending[i:i + self.batch], stage[i:i + self.batch])
+                for i in range(0, len(pending), self.batch)]
 
     def _reset_channel(self, c: int, read_id: str) -> None:
         # no host buffer to clear: stale device chunk slots of the
@@ -298,29 +314,33 @@ class DeviceChunkEngine(ChunkDecisionEngine):
         self._read_id[c] = read_id
         self._done[c] = False
 
-    def _submit_staged(self, pend: List[tuple], stage: List[tuple]) -> None:
+    def _submit(self, pend: List[tuple], stage: List[tuple]) -> None:
         B = self.batch
-        chans = [c for c, _ in pend]     # -1 = scatter-only (see process)
-        rows = np.zeros((B, self.chunk_len), dtype=np.uint8)
-        sc = np.full(B, self._pad_chan, dtype=np.int32)
-        slots = np.zeros(B, dtype=np.int32)
-        dc = np.full(B, self._pad_chan, dtype=np.int32)
-        lengths = np.zeros(B, dtype=np.int32)
-        for i, (c, slot, codes) in enumerate(stage):
-            rows[i, :len(codes)] = codes
-            sc[i] = c
-            slots[i] = slot
-        dc[:len(chans)] = [c if c >= 0 else self._pad_chan for c in chans]
-        lengths[:len(chans)] = [ln for _, ln in pend]
-        packed = (rows[:, 0::4] | (rows[:, 1::4] << 2)
-                  | (rows[:, 2::4] << 4) | (rows[:, 3::4] << 6))
-        self._dev_buf, fused = self.engine.decide_chunk_tick(
-            self._dev_buf, packed, sc, slots, dc, lengths)
-        self._inflight.append((list(chans), fused,
-                               np.array([self._chunks[c] if c >= 0 else 0
-                                         for c in chans]),
-                               [self._read_id[c] if c >= 0 else ""
-                                for c in chans]))
+        with profiling.span("chunks.submit", rows=B) as sp:
+            chans = [c for c, _ in pend]     # -1 = scatter-only (_stage)
+            rows = np.zeros((B, self.chunk_len), dtype=np.uint8)
+            sc = np.full(B, self._pad_chan, dtype=np.int32)
+            slots = np.zeros(B, dtype=np.int32)
+            dc = np.full(B, self._pad_chan, dtype=np.int32)
+            lengths = np.zeros(B, dtype=np.int32)
+            for i, (c, slot, codes) in enumerate(stage):
+                rows[i, :len(codes)] = codes
+                sc[i] = c
+                slots[i] = slot
+            dc[:len(chans)] = [c if c >= 0 else self._pad_chan
+                               for c in chans]
+            if profiling.recording():
+                sp.count(live=np.count_nonzero(dc != self._pad_chan))
+            lengths[:len(chans)] = [ln for _, ln in pend]
+            packed = (rows[:, 0::4] | (rows[:, 1::4] << 2)
+                      | (rows[:, 2::4] << 4) | (rows[:, 3::4] << 6))
+            self._dev_buf, fused = self.engine.decide_chunk_tick(
+                self._dev_buf, packed, sc, slots, dc, lengths)
+            self._inflight.append((list(chans), fused,
+                                   np.array([self._chunks[c] if c >= 0
+                                             else 0 for c in chans]),
+                                   [self._read_id[c] if c >= 0 else ""
+                                    for c in chans]))
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ from cornetto_tpu_torch.kernels.extract import extract_minima
 from cornetto_tpu_torch.kernels.minimizer import pack_codes, pack_reads
 from cornetto_tpu_torch.kernels.votes import policy_from_stats, sharded_votes
 from cornetto_tpu_torch.livefish.index import MinimizerIndex
+from cornetto_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -220,17 +221,20 @@ class SingleChipEngine:
 
         The upload is one copy: the rows, the three index vectors (int64)
         and the lengths (int32) packed into one host buffer, pinned and
-        copied without blocking when the device is a card."""
+        copied without blocking when the device is a card: the span
+        ``decide.upload`` under a profiler."""
         B, nb = rows.shape
         off = -(-B * nb // 8) * 8               # int64 vectors 8-aligned
-        host = np.empty(off + 28 * B, dtype=np.uint8)
-        host[:B * nb] = np.ascontiguousarray(rows, dtype=np.uint8).reshape(-1)
-        host[off:off + 24 * B].view(np.int64)[:] = np.concatenate(
-            [s_chans, s_slots, d_chans])
-        host[off + 24 * B:].view(np.int32)[:] = lengths
-        t = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
+        with profiling.span("decide.upload"):
+            host = np.empty(off + 28 * B, dtype=np.uint8)
+            host[:B * nb] = np.ascontiguousarray(
+                rows, dtype=np.uint8).reshape(-1)
+            host[off:off + 24 * B].view(np.int64)[:] = np.concatenate(
+                [s_chans, s_slots, d_chans])
+            host[off + 24 * B:].view(np.int32)[:] = lengths
+            t = torch.from_numpy(host)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
         idx = t[off:off + 24 * B].view(torch.int64).view(3, B)
         st = self.state
         return chunk_tick_core(

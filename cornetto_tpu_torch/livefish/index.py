@@ -25,6 +25,7 @@ from cornetto_tpu_torch.kernels.minimizer import (DEFAULT_K, DEFAULT_W,
                                                   encode_seq,
                                                   minimizers_native,
                                                   minimizers_np)
+from cornetto_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -120,6 +121,10 @@ def build_index(contigs, n_shards: int = 1,
     (hashes, contigs, positions) arrays — the decision engine needs only
     `btable`, and at 3 Gbp the padded tables are ~3.6 GB of RAM and
     checkpoint weight (the CLI index build passes False).
+
+    Under a profiler the build's stages are the spans index.extract,
+    index.sort, index.dedup and index.fill (the shard tables and the
+    bucket directory).
     """
     import ctypes
     from cornetto_tpu_torch import native
@@ -140,114 +145,119 @@ def build_index(contigs, n_shards: int = 1,
     h = np.empty(cap, np.uint32)
     c = np.empty(cap, np.int32)
     p = np.empty(cap, np.int32)
-    for ci, (name, seq) in enumerate(items):
-        names.append(name)
-        lens_list.append(len(seq))
-        pos, hh = extract(encode_seq(seq), k=k, w=w)
-        need = n_total + len(hh)
-        if need > cap:
-            cap = max(need, cap + (cap >> 1))
+    with profiling.span("index.extract"):
+        for ci, (name, seq) in enumerate(items):
+            names.append(name)
+            lens_list.append(len(seq))
+            pos, hh = extract(encode_seq(seq), k=k, w=w)
+            need = n_total + len(hh)
+            if need > cap:
+                cap = max(need, cap + (cap >> 1))
 
-            def _grow(a):
-                g = np.empty(cap, a.dtype)
-                g[:n_total] = a[:n_total]
-                return g
-            h, c, p = _grow(h), _grow(c), _grow(p)
-        h[n_total:need] = hh
-        c[n_total:need] = ci
-        p[n_total:need] = pos
-        n_total = need
-        del seq, pos, hh
+                def _grow(a):
+                    g = np.empty(cap, a.dtype)
+                    g[:n_total] = a[:n_total]
+                    return g
+                h, c, p = _grow(h), _grow(c), _grow(p)
+            h[n_total:need] = hh
+            c[n_total:need] = ci
+            p[n_total:need] = pos
+            n_total = need
+            del seq, pos, hh
     assert len(names) < 0xFFFF, "contig ids are uint16 in the device table"
     lens = np.array(lens_list, dtype=np.int64)
     h = h[:n_total]
     c = c[:n_total]
     p = p[:n_total]
-    if lib is not None and len(h):
-        # threaded stable LSD radix by hash (native/minimizer_native.c):
-        # np.argsort cost ~100 s + an int64 index array at 3 Gbp; four
-        # memory-bound 8-bit passes with payloads take seconds and the
-        # ping-pong buffers stay under the btable-phase peak
-        import ctypes as _ct
-        h2 = np.empty_like(h)
-        c2 = np.empty_like(c)
-        p2 = np.empty_like(p)
-        pv = _ct.c_void_p
-        lib.mz_radix_sort(pv(h.ctypes.data), pv(c.ctypes.data),
-                          pv(p.ctypes.data), _ct.c_int64(len(h)),
-                          pv(h2.ctypes.data), pv(c2.ctypes.data),
-                          pv(p2.ctypes.data),
-                          _ct.c_int(min(__import__("os").cpu_count() or 1,
-                                        16)))
-        del h2, c2, p2
-    else:
-        # NumPy twin: stable argsort = the same permutation (sort-phase
-        # peak discipline: int32 order indices, one array re-ordered at
-        # a time so the old buffer frees before the next copy)
-        order = np.argsort(h, kind="stable")
-        if len(h) < (1 << 31):
-            order = order.astype(np.int32)
-        h = h[order]
-        c = c[order]
-        p = p[order]
-        del order
+    with profiling.span("index.sort"):
+        if lib is not None and len(h):
+            # threaded stable LSD radix by hash (native/minimizer_native.c):
+            # np.argsort cost ~100 s + an int64 index array at 3 Gbp; four
+            # memory-bound 8-bit passes with payloads take seconds and the
+            # ping-pong buffers stay under the btable-phase peak
+            import ctypes as _ct
+            h2 = np.empty_like(h)
+            c2 = np.empty_like(c)
+            p2 = np.empty_like(p)
+            pv = _ct.c_void_p
+            lib.mz_radix_sort(pv(h.ctypes.data), pv(c.ctypes.data),
+                              pv(p.ctypes.data), _ct.c_int64(len(h)),
+                              pv(h2.ctypes.data), pv(c2.ctypes.data),
+                              pv(p2.ctypes.data),
+                              _ct.c_int(min(__import__("os").cpu_count() or 1,
+                                            16)))
+            del h2, c2, p2
+        else:
+            # NumPy twin: stable argsort = the same permutation (sort-phase
+            # peak discipline: int32 order indices, one array re-ordered at
+            # a time so the old buffer frees before the next copy)
+            order = np.argsort(h, kind="stable")
+            if len(h) < (1 << 31):
+                order = order.astype(np.int32)
+            h = h[order]
+            c = c[order]
+            p = p[order]
+            del order
     log2e = int(n_shards).bit_length() - 1
-    if lib is not None and len(h):
-        # in-place C dedup (write index never exceeds read index)
-        lib.mz_dedup.restype = ctypes.c_int64
-        pv = ctypes.c_void_p
-        m = lib.mz_dedup(pv(h.ctypes.data), pv(c.ctypes.data),
-                         pv(p.ctypes.data), ctypes.c_int64(len(h)),
-                         ctypes.c_int64(repeat_cap),
-                         pv(h.ctypes.data), pv(c.ctypes.data),
-                         pv(p.ctypes.data))
-        h, c, p = h[:m], c[:m], p[:m]
-    elif len(h):
-        # NumPy twin: dedupe to the first TWO occurrences per unique hash
-        # (stable sort = occurrences stay in (contig, position) order);
-        # mark multi-occurrence hashes ambiguous via the position sign bit
-        uniq_first = np.empty(len(h), dtype=bool)
-        uniq_first[0] = True
-        uniq_first[1:] = h[1:] != h[:-1]
-        starts = np.flatnonzero(uniq_first)
-        counts_per = np.diff(np.append(starts, len(h)))
-        ok = counts_per <= repeat_cap
-        first = starts[ok]
-        second = starts[ok & (counts_per > 1)] + 1
-        keep = np.sort(np.concatenate([first, second]))
-        amb = np.repeat(counts_per[ok] > 1, np.minimum(counts_per[ok], 2))
-        h, c, p = h[keep], c[keep], p[keep]
-        p = np.where(amb, p | np.int32(-2**31), p).astype(np.int32)
-    # low-bit sharding: shard s owns hashes with (h & (E-1)) == s — the
-    # low bits stay uniform despite the window-min value skew (see module
-    # docstring), so shards are balanced
-    shard_id = (h & np.uint32(n_shards - 1)).astype(np.int64)
-    counts = np.bincount(shard_id, minlength=n_shards).astype(np.int32)
+    with profiling.span("index.dedup"):
+        if lib is not None and len(h):
+            # in-place C dedup (write index never exceeds read index)
+            lib.mz_dedup.restype = ctypes.c_int64
+            pv = ctypes.c_void_p
+            m = lib.mz_dedup(pv(h.ctypes.data), pv(c.ctypes.data),
+                             pv(p.ctypes.data), ctypes.c_int64(len(h)),
+                             ctypes.c_int64(repeat_cap),
+                             pv(h.ctypes.data), pv(c.ctypes.data),
+                             pv(p.ctypes.data))
+            h, c, p = h[:m], c[:m], p[:m]
+        elif len(h):
+            # NumPy twin: dedupe to the first TWO occurrences per unique hash
+            # (stable sort = occurrences stay in (contig, position) order);
+            # mark multi-occurrence hashes ambiguous via the position sign bit
+            uniq_first = np.empty(len(h), dtype=bool)
+            uniq_first[0] = True
+            uniq_first[1:] = h[1:] != h[:-1]
+            starts = np.flatnonzero(uniq_first)
+            counts_per = np.diff(np.append(starts, len(h)))
+            ok = counts_per <= repeat_cap
+            first = starts[ok]
+            second = starts[ok & (counts_per > 1)] + 1
+            keep = np.sort(np.concatenate([first, second]))
+            amb = np.repeat(counts_per[ok] > 1, np.minimum(counts_per[ok], 2))
+            h, c, p = h[keep], c[keep], p[keep]
+            p = np.where(amb, p | np.int32(-2**31), p).astype(np.int32)
+    with profiling.span("index.fill"):
+        # low-bit sharding: shard s owns hashes with (h & (E-1)) == s — the
+        # low bits stay uniform despite the window-min value skew (see module
+        # docstring), so shards are balanced
+        shard_id = (h & np.uint32(n_shards - 1)).astype(np.int64)
+        counts = np.bincount(shard_id, minlength=n_shards).astype(np.int32)
 
-    H = C = P = None
-    if keep_tables or lib is None:
-        n_pad = max(int(counts.max()) if len(counts) else 1, 1)
-        # round up so the padded table tiles the VPU lanes
-        n_pad = -(-n_pad // 128) * 128
-        H = np.full((n_shards, n_pad), 0xFFFFFFFF, dtype=np.uint32)
-        C = np.full((n_shards, n_pad), -1, dtype=np.int32)
-        P = np.zeros((n_shards, n_pad), dtype=np.int32)
-        for s in range(n_shards):
-            sel = shard_id == s
-            ns = int(counts[s])
-            H[s, :ns] = h[sel]  # h sorted ascending -> per-shard sorted too
-            C[s, :ns] = c[sel]
-            P[s, :ns] = p[sel]
-    del shard_id
+        H = C = P = None
+        if keep_tables or lib is None:
+            n_pad = max(int(counts.max()) if len(counts) else 1, 1)
+            # round up so the padded table tiles the VPU lanes
+            n_pad = -(-n_pad // 128) * 128
+            H = np.full((n_shards, n_pad), 0xFFFFFFFF, dtype=np.uint32)
+            C = np.full((n_shards, n_pad), -1, dtype=np.int32)
+            P = np.zeros((n_shards, n_pad), dtype=np.int32)
+            for s in range(n_shards):
+                sel = shard_id == s
+                ns = int(counts[s])
+                # h sorted ascending -> per-shard sorted too
+                H[s, :ns] = h[sel]
+                C[s, :ns] = c[sel]
+                P[s, :ns] = p[sel]
+        del shard_id
 
-    if lib is not None:
-        btable, bshift, dropped = _build_buckets_native(
-            lib, h, c, p, counts, log2e, bucket_slots, max_overflow,
-            two_choice)
-    else:
-        btable, bshift, dropped = _build_buckets(
-            H, C, P, counts, log2e, bucket_slots, max_overflow,
-            two_choice)
+        if lib is not None:
+            btable, bshift, dropped = _build_buckets_native(
+                lib, h, c, p, counts, log2e, bucket_slots, max_overflow,
+                two_choice)
+        else:
+            btable, bshift, dropped = _build_buckets(
+                H, C, P, counts, log2e, bucket_slots, max_overflow,
+                two_choice)
     return MinimizerIndex(H, C, P, counts, names, lens, k, w,
                           btable=btable, bucket_shift=bshift,
                           bucket_slots=bucket_slots, dropped_frac=dropped,

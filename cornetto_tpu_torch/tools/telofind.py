@@ -18,7 +18,6 @@ imported.
 """
 
 import sys
-import time
 
 import torch
 
@@ -28,6 +27,7 @@ from cornetto_tpu_torch.kernels.minimizer import encode_bytes
 from cornetto_tpu_torch.kernels.motif import revcomp_motif
 from cornetto_tpu_torch.kernels.telo import (scan_runs_from_positions,
                                              telo_match_positions)
+from cornetto_tpu_torch.utils import profiling
 
 
 def scan_runs(seq: bytes, motif: bytes):
@@ -55,49 +55,50 @@ def run(fasta_path: str, motif: str = "TTAGGG", out=None,
     positions read back) and its seconds per part to it: read (the FASTA
     parse), encode (uppercase, and the codes on the device backend), h2d,
     kernel, compact, readback, walk (the host scan on the host backend) and
-    output, synchronising the card at the end of each part."""
+    output, synchronising the card at the end of each part.  Under a
+    profiler each part is the span ``telofind.<part>``, timed by the same
+    clock (utils.profiling.lap)."""
     out = out or sys.stdout
     rmotif = revcomp_motif(motif)
     dev = resolve_device() if backend == "device" else None
     acc = {} if stats is None else stats
-    last = [time.perf_counter()]
 
     def lap(part):
-        if stats is not None and dev is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        acc[part] = acc.get(part, 0.0) + now - last[0]
-        last[0] = now
+        return profiling.lap("telofind." + part, stats, dev)
 
-    for rec in read_fastx(fasta_path):
-        lap("read")
-        # disambiguate: uppercase (reference :76-81)
-        seq = rec.seq.upper().encode("latin-1")
+    recs = read_fastx(fasta_path)
+    while True:
+        with lap("read"):
+            rec = next(recs, None)
+        if rec is None:
+            break
+        with lap("encode"):
+            # disambiguate: uppercase (reference :76-81)
+            seq = rec.seq.upper().encode("latin-1")
         L = len(seq)
         codes = None
-        lap("encode")
         for strand, m in ((0, motif), (1, rmotif)):
             mb = m.encode("latin-1")
             if backend != "device" or not set(mb) <= set(b"ACGT"):
-                runs = list(scan_runs(seq, mb))
+                with lap("walk"):
+                    runs = list(scan_runs(seq, mb))
             else:
                 if codes is None:       # one upload serves both strands
-                    codes = encode_bytes(seq)
-                    lap("encode")
-                    codes = torch.from_numpy(codes).to(dev)
-                    lap("h2d")
+                    with lap("encode"):
+                        codes = encode_bytes(seq)
+                    with lap("h2d"):
+                        codes = torch.from_numpy(codes).to(dev)
                 pos = telo_match_positions(codes, encode_bytes(mb).tolist(),
                                            stats=stats)
-                last[0] = time.perf_counter()   # it timed its own parts
-                pos = pos.cpu().numpy()
-                lap("readback")
+                with lap("readback"):
+                    pos = pos.cpu().numpy()
                 acc["positions"] = acc.get("positions", 0) + len(pos)
-                runs = scan_runs_from_positions(pos, len(mb), L)
-            lap("walk")
-            out.write("".join("%s\t%d\t%d\t%d\t%d\t%d\n"
-                              % (rec.name, L, strand, st, end, ln)
-                              for st, end, ln in runs))
-            lap("output")
+                with lap("walk"):
+                    runs = scan_runs_from_positions(pos, len(mb), L)
+            with lap("output"):
+                out.write("".join("%s\t%d\t%d\t%d\t%d\t%d\n"
+                                  % (rec.name, L, strand, st, end, ln)
+                                  for st, end, ln in runs))
         acc["contigs"] = acc.get("contigs", 0) + 1
         acc["bases"] = acc.get("bases", 0) + L
 
