@@ -32,9 +32,9 @@ import torch
 from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.kernels import _build
 from cornetto_tpu_torch.kernels.sdust_chunked import (DEF_W, assemble,
-                                                      plan_chunks,
+                                                      encode, find_n_sites,
+                                                      plan_from_sites,
                                                       run_host_spans)
-from cornetto_tpu_torch.kernels.sdust_core import _NT4
 from cornetto_tpu_torch.native.sdust import sdust as sdust_exact
 from cornetto_tpu_torch.utils import profiling
 
@@ -441,20 +441,25 @@ def sdust_chunks_ref(rows: torch.Tensor, T: int = 20, W: int = DEF_W):
                       max_intervals(clen))
 
 
-def plan_rows(codes: np.ndarray, W: int = DEF_W, core: int = 2048):
+def plan_rows(codes: np.ndarray, W: int = DEF_W, core: int = 2048,
+              sites: np.ndarray = None):
     """The shared chunk plan of one sequence's codes (0-3, 4 = N) and the
     rows of ``sdust_dp`` over it: (chunks, host spans, padded codes, row
     offsets, clen).  Row r is padded[a_r : a_r + clen]: ctx = 4W N's before
     the sequence and core + W + 8 after, so each row holds exactly
-    sdust_pallas' codes.  padded and the offsets are None without chunks."""
-    chunks, host = plan_chunks(codes, core, W)
+    sdust_pallas' codes.  padded and the offsets are None without chunks.
+    sites: find_n_sites(codes), where the caller has it."""
+    if sites is None:
+        sites = find_n_sites(codes)
+    a, chunks, host = plan_from_sites(len(codes), sites, core, W)
     ctx = 4 * W
     clen = ctx + core + W + 8
     if not chunks:
         return chunks, host, None, None, clen
-    padded = np.full(len(codes) + clen, 4, dtype=np.uint8)
+    padded = np.empty(len(codes) + clen, dtype=np.uint8)
+    padded[:ctx] = 4
     padded[ctx:ctx + len(codes)] = codes
-    a = np.fromiter((c[0] for c in chunks), dtype=np.int64, count=len(chunks))
+    padded[ctx + len(codes):] = 4
     return chunks, host, padded, a, clen
 
 
@@ -466,8 +471,9 @@ def sdust_device(seq: bytes, T: int = 20, W: int = DEF_W, core: int = 2048,
     overflow rows on the shared native DP, the shared assemble.  Equal to
     sdust_pallas and to the sequential DP.
 
-    stats: optional dict; the call adds its counts (chunks, overflow_rows,
-    host_span_bases, heavy_rows), its seconds per part (plan, h2d, kernel,
+    stats: optional dict; the call adds its counts (chunks, n_sites: the N
+    positions the plan indexed, overflow_rows, host_span_bases,
+    heavy_rows), its seconds per part (plan, h2d, kernel,
     readback, overflow, host_spans, assemble) and the kernel's passes in
     milliseconds (light_ms, heavy_ms) to it, synchronising the card at the
     end of each part.  Under a profiler each part is the span
@@ -479,9 +485,12 @@ def sdust_device(seq: bytes, T: int = 20, W: int = DEF_W, core: int = 2048,
     def lap(part):
         return profiling.lap("sdust." + part, stats, dev)
 
-    with lap("plan"):
-        chunks, host, padded, a, clen = plan_rows(
-            _NT4[np.frombuffer(seq, dtype=np.uint8)], W, core)
+    with lap("plan") as span:
+        codes = encode(seq)
+        sites = find_n_sites(codes)
+        span.count(n_sites=len(sites))
+        chunks, host, padded, a, clen = plan_rows(codes, W, core,
+                                                  sites=sites)
     ctx = 4 * W
     per_chunk = []
     overflow = np.zeros(0, dtype=bool)
@@ -507,7 +516,7 @@ def sdust_device(seq: bytes, T: int = 20, W: int = DEF_W, core: int = 2048,
         host_parts = run_host_spans(seq, host, T, W)
     with lap("assemble"):
         res = assemble(per_chunk, chunks, host_parts, W)
-    for key, n in (("chunks", len(chunks)),
+    for key, n in (("chunks", len(chunks)), ("n_sites", len(sites)),
                    ("overflow_rows", int(overflow.sum())),
                    ("host_span_bases", sum(min(b + W + 8, len(seq)) - q
                                            for q, _a, b in host))):

@@ -46,8 +46,51 @@ from typing import List, Tuple
 
 import numpy as np
 
+from cornetto_tpu_torch.kernels.sdust_core import _NT4
+
 SD_WLEN = 3
 DEF_W = 64
+_NT4_TABLE = _NT4.tobytes()
+
+
+def encode(seq: bytes) -> np.ndarray:
+    """The DP's codes of seq (0-3 for ACGT in either case, 4 for any other
+    byte): one table lookup a byte, read-only."""
+    return np.frombuffer(seq.translate(_NT4_TABLE), dtype=np.uint8)
+
+
+def find_n_sites(codes: np.ndarray) -> np.ndarray:
+    """The sorted positions of codes' N's (>= 4): the sparse index the
+    chunk plan is built from, 8 B a site."""
+    return np.flatnonzero(codes >= 4)
+
+
+def plan_from_sites(L: int, sites: np.ndarray, core: int, W: int = DEF_W):
+    """plan_chunks of a sequence of length L with N's at the sorted
+    positions `sites`: (the device chunks' core starts as an int64 array,
+    device_chunks, host_spans)."""
+    assert core >= 2 * W, "core must exceed one window"
+    ctx, conv, look = 4 * W, 2 * W, W + 8
+    a = np.arange(0, L, core, dtype=np.int64)
+    b = np.minimum(a + core, L)
+    # a core is eligible when no N lies in [a - 2W, a)
+    ok = np.searchsorted(sites, np.maximum(a - conv, 0)) \
+        == np.searchsorted(sites, a)
+    da, db = a[ok], b[ok]
+    device = list(zip(da.tolist(), db.tolist(),
+                      np.maximum(da - ctx, 0).tolist(),
+                      np.minimum(db + look, L).tolist()))
+    # consecutive ineligible cores coalesce into one span, whose sequential
+    # DP starts 2W before the end of the nearest N-free stretch of 2W or
+    # more before its first core (or at 0).  Such a stretch ends at an N
+    # site, and the one that ends at the first core is shorter.
+    bad = np.flatnonzero(~ok)
+    first = bad[np.diff(bad, prepend=-2) != 1]
+    last = bad[np.diff(bad, append=len(a) + 1) != 1]
+    ends = sites[np.diff(sites, prepend=-1) > conv]
+    q = np.append(0, ends - conv)[np.searchsorted(ends, a[first])]
+    host = list(zip(q.tolist(), a[first].tolist(), b[last].tolist()))
+    return da, device, host
 
 
 def plan_chunks(codes: np.ndarray, core: int, W: int = DEF_W):
@@ -58,35 +101,12 @@ def plan_chunks(codes: np.ndarray, core: int, W: int = DEF_W):
         slice = [core_start - 4W (clamped), core_end + W + 8 (clamped)),
         with the last 2W before core_start guaranteed N-free;
       host_spans: (run_start, core_start, core_end) for the sequential
-        fallback (run the DP from run_start, clip to the cores).
+        fallback (run the DP from run_start, clip to the cores), run_start
+        2W before the end of the nearest N-free stretch of 2W or more
+        before core_start (or 0): the sequential DP from there carries
+        exact state into the core.
     """
-    assert core >= 2 * W, "core must exceed one window"
-    L = len(codes)
-    ctx = 4 * W
-    conv = 2 * W
-    look = W + 8
-    isn = codes >= 4
-    cs = np.zeros(L + 1, dtype=np.int64)
-    np.cumsum(isn, out=cs[1:])
-    device = []
-    host = []   # (run_start, core_start, core_end)
-    for a in range(0, L, core):
-        b = min(a + core, L)
-        if cs[a] - cs[max(a - conv, 0)] == 0:
-            device.append((a, b, max(a - ctx, 0), min(b + look, L)))
-        else:
-            # walk back to the end of a 2W N-free stretch (or pos 0): the
-            # sequential DP from there carries exact state into the core
-            q = a
-            seen = 0
-            while q > 0 and seen < conv:
-                q -= 1
-                seen = 0 if isn[q] else seen + 1
-            if host and host[-1][2] == a:
-                host[-1] = (min(host[-1][0], q), host[-1][1], b)
-            else:
-                host.append((q, a, b))
-    return device, host
+    return plan_from_sites(len(codes), find_n_sites(codes), core, W)[1:]
 
 
 def clip(intervals, lo: int, hi: int):
@@ -137,9 +157,8 @@ def sdust_chunked_oracle(seq: bytes, T: int = 20, W: int = DEF_W,
     tiling (a chunk a row)."""
     # the per-chunk DP is the native port: the pure-Python DP at
     # dense-satellite rates would make this harness minutes-slow
-    from cornetto_tpu_torch.kernels.sdust_core import _NT4
     from cornetto_tpu_torch.native.sdust import sdust
-    codes = _NT4[np.frombuffer(seq, dtype=np.uint8)]
+    codes = encode(seq)
     device, host = plan_chunks(codes, core, W)
     per_chunk = [sdust(seq[c0:stop], T=T, W=W)
                  for _a, _b, c0, stop in device]

@@ -47,6 +47,7 @@ from cornetto_tpu_torch.dist import checkpoint as ckpt
 from cornetto_tpu_torch.flow import evaljobs
 from cornetto_tpu_torch.io import bam, bed, eps, fasta, gfa, paf, raster
 from cornetto_tpu_torch.kernels import minimizer as mz
+from cornetto_tpu_torch.kernels import sdust as sdust_kernels
 from cornetto_tpu_torch.kernels import sdust_chunked as chunked
 from cornetto_tpu_torch.kernels.sdust_core import _NT4
 from cornetto_tpu_torch.kernels.telo import _steps_for, scan_runs_from_mask
@@ -324,6 +325,107 @@ def test_plan_chunks_and_assemble_equal(core, W):
         got = chunked.assemble(per_chunk, device, parts, W)
         assert got == jax_chunked.assemble(per_chunk, device, parts, W)
         assert got == native_sdust(seq, W=W)
+
+
+def _assert_plan_exact(codes, core, W):
+    """plan_chunks equals the JAX package's, and plan_rows' rows are
+    sdust_pallas' rows (tests/test_torch_sdust.py::
+    test_plan_rows_are_the_pallas_rows)."""
+    plan = chunked.plan_chunks(codes, core, W)
+    assert plan == jax_chunked.plan_chunks(codes, core, W)
+    chunks, host, padded, off, clen = sdust_kernels.plan_rows(codes, W, core)
+    assert (chunks, host) == plan
+    if not chunks:
+        assert padded is None and off is None
+        return plan
+    assert off.tolist() == [c[0] for c in chunks]
+    for (a, _b, c0, stop), o in zip(chunks, off):
+        row = np.full(clen, 4, dtype=np.uint8)
+        pad_left = 4 * W - (a - c0)
+        row[pad_left:pad_left + stop - c0] = codes[c0:stop]
+        assert np.array_equal(padded[o:o + clen], row)
+    return plan
+
+
+def _n_layout(name, core, W):
+    """(length, N runs as (start, length or None: to the end)) of one N
+    layout around the plan's edges; a = 3 core is a core start."""
+    a, w2, L = 3 * core, 2 * W, 8 * core + 37
+    return {
+        "n_at_0": (L, [(0, 1)]),
+        "n_at_a_minus_1": (L, [(a - 1, 1)]),
+        "n_at_a_minus_2w": (L, [(a - w2, 1)]),
+        "n_at_a_minus_2w_minus_1": (L, [(a - w2 - 1, 1)]),
+        "free_2w_minus_1": (L, [(a - 1 - k * w2, 1) for k in range(4)]),
+        "free_2w": (L, [(a - 1 - k * (w2 + 1), 1) for k in range(4)]),
+        "run_over_cores": (L, [(core + 5, 4 * core + 12)]),
+        "run_ends_seq": (L, [(L - 3 * core - 7, None)]),
+        "all_n": (L, [(0, None)]),
+        "empty": (0, []),
+        "shorter_than_core": (core - 5, [(core // 2, 1)]),
+        "ineligible_one_core_apart": (L, [(2 * core - 1, 1),
+                                          (4 * core - 1, 1)]),
+        "coalescing_cores": (L, [(2 * core - 1, 1), (3 * core - 1, 1),
+                                 (4 * core - w2, 3), (4 * core - 3 * W, 1)]),
+    }[name]
+
+
+@pytest.mark.parametrize("core,W", [(128, 32), (512, 64), (132, 66)])
+@pytest.mark.parametrize("name", [
+    "n_at_0", "n_at_a_minus_1", "n_at_a_minus_2w", "n_at_a_minus_2w_minus_1",
+    "free_2w_minus_1", "free_2w", "run_over_cores", "run_ends_seq", "all_n",
+    "empty", "shorter_than_core", "ineligible_one_core_apart",
+    "coalescing_cores"])
+def test_plan_chunks_n_layouts_equal(name, core, W):
+    L, runs = _n_layout(name, core, W)
+    codes = np.random.default_rng([23, core, W]).integers(
+        0, 4, L).astype(np.uint8)
+    for s, n in runs:
+        codes[s:None if n is None else s + n] = 4
+    device, host = _assert_plan_exact(codes, core, W)
+    a = 3 * core
+    eligible = {c[0] for c in device}
+    if name in ("n_at_a_minus_1", "n_at_a_minus_2w", "free_2w_minus_1",
+                "free_2w"):
+        assert a not in eligible
+    elif name == "n_at_a_minus_2w_minus_1":
+        assert a in eligible
+    elif name == "ineligible_one_core_apart":
+        assert [h[1:] for h in host] == [(2 * core, a),
+                                         (4 * core, 5 * core)]
+    elif name == "coalescing_cores":
+        assert len(host) == 1 and host[0][1:] == (2 * core, 5 * core)
+    elif name == "all_n":       # the first core has no context to test
+        assert [c[0] for c in device] == [0] and host == [(0, core, L)]
+    elif name == "empty":
+        assert (device, host) == ([], [])
+
+
+@pytest.mark.parametrize("core,W", [(128, 3), (128, 32), (512, 64),
+                                    (2048, 64), (2048, 66)])
+def test_plan_chunks_fuzz_equal(monkeypatch, core, W):
+    """Random N runs, from single N's to runs of several cores: the plan is
+    exact, and sdust_device on it (the plain DP) is the sequential DP."""
+    import torch
+    assert np.array_equal(chunked.encode(bytes(range(256))), JAX_NT4)
+    monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    rng = np.random.default_rng([24, core, W])
+    try:
+        for _ in range(4):
+            L = int(rng.integers(3 * core, 9 * core))
+            s = ACGT[rng.integers(0, 4, L)]
+            for _ in range(int(rng.integers(1, 8))):
+                p = int(rng.integers(0, L))
+                s[p:p + int(rng.integers(1, 3 * core))] = "N"
+            seq = "".join(s).encode()
+            codes = _NT4[np.frombuffer(seq, dtype=np.uint8)]
+            _assert_plan_exact(codes, core, W)
+            assert sdust_kernels.sdust_device(seq, W=W, core=core) \
+                == native_sdust(seq, W=W)
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("T,W", [(20, 64), (14, 32), (5, 3), (30, 66)])

@@ -179,6 +179,35 @@ def test_plan_rows_are_the_pallas_rows(n, W, core):
     assert plan_rows(np.zeros(0, np.uint8), W, core)[2:4] == (None, None)
 
 
+def test_plan_rows_peak_memory():
+    """The plan is built from the N sites alone: besides the padded codes,
+    no per-base array wider than a byte (an int64 prefix sum took 17 B a
+    base)."""
+    import tracemalloc
+    n = 4_000_000
+    codes = np.random.default_rng(17).integers(0, 4, n).astype(np.uint8)
+    codes[1_500_000:1_520_000] = 4
+    tracemalloc.start()
+    try:
+        chunks, host, padded, _off, _clen = plan_rows(codes, 64, 2048)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert len(chunks) > 1900 and len(host) == 1 and len(padded) > n
+    assert peak < 4 * n, peak / n
+
+
+def test_stats_count_n_sites(monkeypatch):
+    monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
+    rng = np.random.default_rng(18)
+    s = np.array(list("ACGTacgtNnRYK-"))[rng.integers(0, 14, 3000)]
+    s[:1500] = ACGT[rng.integers(0, 4, 1500)]
+    seq = "".join(s).encode()
+    stats = {}
+    assert sdust_device(seq, core=256, stats=stats) == sdust(seq)
+    assert stats["n_sites"] == sum(c not in b"ACGTacgt" for c in seq) > 0
+
+
 def test_overflow_rows_rerun_on_host(monkeypatch):
     """Rows with more intervals than MAXI go to the native DP."""
     monkeypatch.setenv("CORNETTO_FORCE_CPU", "1")
