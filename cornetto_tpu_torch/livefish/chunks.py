@@ -29,7 +29,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from cornetto_tpu_torch.kernels.minimizer import encode_seq, pack_reads
+from cornetto_tpu_torch.kernels.minimizer import (encode_bytes, encode_seq,
+                                                  pack_reads)
 from cornetto_tpu_torch.livefish.decide import unpack_fused
 from cornetto_tpu_torch.utils import profiling
 
@@ -119,13 +120,15 @@ class ChunkDecisionEngine:
         for them, so emitting nothing is the faithful behavior).
 
         Under a profiler the tick is the span ``chunks.process``, tiled by
-        ``chunks.stage`` (the event loop), ``chunks.submit`` (a batch's
-        launch; counts ``rows`` launched and ``live`` rows that decide a
-        channel), ``chunks.readback`` (the host waiting on the card and
-        the result's copy) and ``chunks.resolve`` (the decisions built)."""
+        ``chunks.stage`` (the events staged; DeviceChunkEngine counts
+        ``events`` handed in and the ``runs`` of distinct channels they were
+        cut into), ``chunks.submit`` (a batch's launch; counts ``rows``
+        launched and ``live`` rows that decide a channel),
+        ``chunks.readback`` (the host waiting on the card and the result's
+        copy) and ``chunks.resolve`` (the decisions built)."""
         with profiling.span("chunks.process"):
-            with profiling.span("chunks.stage"):
-                batches = self._stage(events)
+            with profiling.span("chunks.stage") as sp:
+                batches = self._stage(events, sp)
             for batch in batches:
                 self._submit(*batch)
             out: List[ChunkDecision] = []
@@ -133,9 +136,10 @@ class ChunkDecisionEngine:
                 out.extend(self._resolve(self._inflight.pop(0)))
         return out
 
-    def _stage(self, events: Sequence[ChunkEvent]) -> List[tuple]:
+    def _stage(self, events: Sequence[ChunkEvent], sp) -> List[tuple]:
         """The event loop: each event's codes into its channel's buffer;
-        returns the arguments of each batch's _submit."""
+        returns the arguments of each batch's _submit.  sp: the span
+        chunks.stage, for counts."""
         pending: List[int] = []
         for ev in events:
             c = ev.channel
@@ -252,95 +256,135 @@ class DeviceChunkEngine(ChunkDecisionEngine):
                                                 policy.max_chunks)
         self._pad_chan = n_channels          # sacrificial scatter row
 
-    def _stage(self, events: Sequence[ChunkEvent]) -> List[tuple]:
-        pending: List[int] = []
-        stage: List[tuple] = []              # (chan, slot, codes)
-        for ev in events:
-            c = ev.channel
-            if ev.read_id != self._read_id[c]:
-                self._reset_channel(c, ev.read_id)
-            if self._done[c]:
-                continue
-            codes = encode_seq(ev.seq)
-            if len(codes) > self.chunk_len:
+    def _stage(self, events: Sequence[ChunkEvent], sp) -> List[tuple]:
+        """The call's events as arrays, in their order; returns the
+        arguments of each batch's _submit.  A call in which a channel
+        repeats (out of the sequencer's one-chunk-a-tick model, but it must
+        not diverge from the host engine) is cut into consecutive runs of
+        distinct channels, each staged in turn by _stage_run; sp (the span
+        chunks.stage) counts the ``events`` and the ``runs``."""
+        chans = [ev.channel for ev in events]
+        rids = [ev.read_id for ev in events]
+        seqs = [ev.seq for ev in events]
+        runs = _distinct_runs(chans)
+        if profiling.recording():
+            sp.count(events=len(events), runs=len(runs))
+        parts = [self._stage_run(chans[a:b], rids[a:b], seqs[a:b])
+                 for a, b in runs]
+        if not parts:
+            return []
+        ch, codes, sc, slots, lengths, chunks_at = (
+            x[0] if len(x) == 1 else np.concatenate(x)
+            for x in zip(*(p[:6] for p in parts)))
+        ids = [r for p in parts for r in p[6]]
+        if len(parts) > 1:
+            # One decision per channel per call, at its FINAL accumulated
+            # prefix -- matching the host engine, whose _submit reads the
+            # accumulated buffer after the whole event loop: a channel's
+            # non-final entries keep their SCATTER but decide the pad row,
+            # and _resolve skips them (channel -1).  The final entry sits
+            # in the last batch, so every earlier scatter has landed by
+            # then.  (Within one run every entry is its channel's last.)
+            last = np.zeros(len(ch), dtype=bool)
+            last[len(ch) - 1 - np.unique(ch[::-1], return_index=True)[1]] \
+                = True
+            ch = np.where(last, ch, -1)
+            chunks_at = np.where(last, chunks_at, 0)
+            for i in np.flatnonzero(~last).tolist():
+                ids[i] = ""
+        B = self.batch
+        return [(ch[i:i + B], codes[i:i + B], sc[i:i + B], slots[i:i + B],
+                 lengths[i:i + B], chunks_at[i:i + B], ids[i:i + B])
+                for i in range(0, len(ch), B)]
+
+    def _stage_run(self, chans: List[int], rids: List[str],
+                   seqs: List[str]) -> tuple:
+        """Stage events on distinct channels: the read-id resets, one
+        encode of every kept chunk (a decided channel's is skipped), the
+        input checks, then the channels' lengths and chunk counts.  Nothing
+        is written when a check fails.  Returns, for the kept events in
+        order: the channels, the codes (a chunk_len row each), the scatter
+        channels and slots, the post-write lengths, the chunk counts and
+        the read ids.  seqs is the caller's own list: short pieces are
+        padded in it."""
+        L = self.chunk_len
+        c = np.array(chans, dtype=np.int64)
+        ids = self._read_id
+        reset = np.array([r != ids[x] for x, r in zip(chans, rids)],
+                         dtype=bool)
+        keep = reset | ~self._done[c]
+        if not keep.all():
+            kept = np.flatnonzero(keep).tolist()
+            c, reset = c[keep], reset[keep]
+            rids, seqs = [rids[i] for i in kept], [seqs[i] for i in kept]
+        n = np.where(reset, 0, self._blen[c])
+        lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
+        for i in np.flatnonzero(lens != L).tolist():
+            # a read's final piece, padded with code 0 (the host engine's
+            # zero padding); a piece too long, cut (it raises below)
+            seqs[i] = seqs[i][:L].ljust(L, "A")
+        codes = encode_bytes("".join(seqs).encode("latin-1")).reshape(-1, L)
+        acgt = codes.max(axis=1) < 4
+        bad = (lens > L) | ~acgt | (n % L != 0)
+        if bad.any():
+            i = int(np.argmax(bad))
+            if lens[i] > L:
                 raise ValueError(
                     "chunk of %d bases on channel %d exceeds chunk_len=%d"
-                    % (len(codes), c, self.chunk_len))
-            if codes.size and codes.max() >= 4:
+                    % (lens[i], c[i], L))
+            if not acgt[i]:
                 raise ValueError(
                     "non-ACGT base in chunk on channel %d: the on-device "
                     "2-bit state cannot carry N (use ChunkDecisionEngine)"
-                    % c)
-            n = int(self._blen[c])
-            if n % self.chunk_len:
-                raise ValueError(
-                    "channel %d got a new chunk after a short piece "
-                    "(accumulated %d bases): short chunks must be final"
-                    % (c, n))
-            take = min(len(codes), self.max_len - n)
-            if take > 0:
-                stage.append((c, n // self.chunk_len, codes[:take]))
-                self._blen[c] = n + take
-            else:
-                # buffer already full (pipelined channel awaiting its
-                # decision): nothing new to write, still re-decide
-                stage.append((self._pad_chan, 0, codes[:0]))
-            self._chunks[c] += 1
-            # carry the post-write length: reading self._blen at submit
-            # time would be stale if the same channel contributed two
-            # chunks in one call that split across batch boundaries
-            pending.append((c, int(self._blen[c])))
-        # One decision per channel per call, at its FINAL accumulated
-        # prefix — matching the host engine, whose _submit reads the
-        # accumulated buffer after the whole event loop (duplicate
-        # channels in one call are out of the sequencer's
-        # one-chunk-per-tick model but must not diverge): non-final
-        # duplicate entries keep their SCATTER but decide the pad row,
-        # and _resolve skips them (channel -1).  The final entry sits in
-        # the last batch, so every earlier scatter has landed by then.
-        last = {}
-        for i, (c, _ln) in enumerate(pending):
-            last[c] = i
-        pending = [(c if last[c] == i else -1, ln)
-                   for i, (c, ln) in enumerate(pending)]
-        return [(pending[i:i + self.batch], stage[i:i + self.batch])
-                for i in range(0, len(pending), self.batch)]
+                    % c[i])
+            raise ValueError(
+                "channel %d got a new chunk after a short piece "
+                "(accumulated %d bases): short chunks must be final"
+                % (c[i], n[i]))
+        # a new read: no device buffer to clear, the previous read's stale
+        # chunk slots are masked out by the per-read lengths
+        for i in np.flatnonzero(reset).tolist():
+            ids[c[i]] = rids[i]
+        self._done[c[reset]] = False
+        # the whole chunk or nothing: lengths stay multiples of chunk_len
+        # until a short final piece, and max_len is max_chunks of them; a
+        # full buffer (a pipelined channel awaiting its decision) or an
+        # empty chunk writes nothing and still re-decides
+        write = (lens > 0) & (n < self.max_len)
+        blen = n + np.where(write, lens, 0)
+        chunks = np.where(reset, 0, self._chunks[c]) + 1
+        self._blen[c] = blen
+        self._chunks[c] = chunks
+        codes[~write] = 0
+        return (c, codes, np.where(write, c, self._pad_chan),
+                np.where(write, n // L, 0), blen, chunks, rids)
 
-    def _reset_channel(self, c: int, read_id: str) -> None:
-        # no host buffer to clear: stale device chunk slots of the
-        # previous read are masked out by the per-read lengths
-        self._blen[c] = 0
-        self._chunks[c] = 0
-        self._read_id[c] = read_id
-        self._done[c] = False
-
-    def _submit(self, pend: List[tuple], stage: List[tuple]) -> None:
-        B = self.batch
+    def _submit(self, chans, codes, s_chans, slots, lengths, chunks_at,
+                rids) -> None:
+        """Launch one batch of _stage's: its first len(chans) rows are the
+        staged events', the rest zero rows that scatter into and decide
+        the pad row."""
+        B, k, pad = self.batch, len(chans), self._pad_chan
         with profiling.span("chunks.submit", rows=B) as sp:
-            chans = [c for c, _ in pend]     # -1 = scatter-only (_stage)
-            rows = np.zeros((B, self.chunk_len), dtype=np.uint8)
-            sc = np.full(B, self._pad_chan, dtype=np.int32)
-            slots = np.zeros(B, dtype=np.int32)
-            dc = np.full(B, self._pad_chan, dtype=np.int32)
-            lengths = np.zeros(B, dtype=np.int32)
-            for i, (c, slot, codes) in enumerate(stage):
-                rows[i, :len(codes)] = codes
-                sc[i] = c
-                slots[i] = slot
-            dc[:len(chans)] = [c if c >= 0 else self._pad_chan
-                               for c in chans]
+            # 2-bit pack, first base in the low bits: each word of four
+            # codes (little-endian, codes < 4) folds into its low byte
+            w = codes.view("<u4")
+            w = w | (w >> 6)
+            packed = np.zeros((B, self.chunk_len // 4), dtype=np.uint8)
+            packed[:k] = w | (w >> 12)
+            sc = np.full(B, pad, dtype=np.int32)
+            sc[:k] = s_chans
+            sl = np.zeros(B, dtype=np.int32)
+            sl[:k] = slots
+            dc = np.full(B, pad, dtype=np.int32)
+            dc[:k] = np.where(chans >= 0, chans, pad)
+            ln = np.zeros(B, dtype=np.int32)
+            ln[:k] = lengths
             if profiling.recording():
-                sp.count(live=np.count_nonzero(dc != self._pad_chan))
-            lengths[:len(chans)] = [ln for _, ln in pend]
-            packed = (rows[:, 0::4] | (rows[:, 1::4] << 2)
-                      | (rows[:, 2::4] << 4) | (rows[:, 3::4] << 6))
+                sp.count(live=np.count_nonzero(chans >= 0))
             self._dev_buf, fused = self.engine.decide_chunk_tick(
-                self._dev_buf, packed, sc, slots, dc, lengths)
-            self._inflight.append((list(chans), fused,
-                                   np.array([self._chunks[c] if c >= 0
-                                             else 0 for c in chans]),
-                                   [self._read_id[c] if c >= 0 else ""
-                                    for c in chans]))
+                self._dev_buf, packed, sc, sl, dc, ln)
+            self._inflight.append((chans.tolist(), fused, chunks_at, rids))
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +481,21 @@ def replay_read_until(engine: ChunkDecisionEngine,
     if decision_chunks:
         m.mean_decision_chunks = float(np.mean(decision_chunks))
     return m
+
+
+def _distinct_runs(chans: List[int]) -> List[Tuple[int, int]]:
+    """The [start, end) bounds of consecutive runs of ``chans`` in which no
+    channel repeats, each as long as it can be."""
+    if len(set(chans)) == len(chans):
+        return [(0, len(chans))] if chans else []
+    runs, seen, a = [], set(), 0
+    for i, c in enumerate(chans):
+        if c in seen:
+            runs.append((a, i))
+            seen, a = set(), i
+        seen.add(c)
+    runs.append((a, len(chans)))
+    return runs
 
 
 def _host(x) -> np.ndarray:

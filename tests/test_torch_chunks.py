@@ -279,10 +279,117 @@ def test_device_chunk_engine_input_contract(setup):
         ce.process([tchunks.ChunkEvent(0, "r0", "ACGTN" * 8)])
     with pytest.raises(ValueError, match="exceeds chunk_len"):
         ce.process([tchunks.ChunkEvent(1, "r1", "A" * 300)])
+    with pytest.raises(ValueError, match="non-ACGT"):
+        ce.process([tchunks.ChunkEvent(1, "r1", "acgtn" * 8)])
     # a short FINAL piece is fine; a follow-up chunk after it is not
     ce.process([tchunks.ChunkEvent(0, "r2", "ACGT" * 10)])
     with pytest.raises(ValueError, match="short"):
         ce.process([tchunks.ChunkEvent(0, "r2", "ACGT" * 50)])
+    # a call of distinct channels whose last chunk is refused writes
+    # nothing for the events before it: no reset, length or chunk count
+    ce = tchunks.DeviceChunkEngine(eng, n_channels=3, chunk_len=200, batch=3)
+    ce.process([tchunks.ChunkEvent(0, "a", "ACGT" * 50),
+                tchunks.ChunkEvent(1, "b", "ACGT" * 50)])
+    before = (list(ce._read_id), ce._blen.tolist(), ce._chunks.tolist(),
+              ce._done.tolist(), ce._dev_buf.clone(), len(ce._inflight))
+    with pytest.raises(ValueError, match="non-ACGT base .* on channel 2"):
+        ce.process([tchunks.ChunkEvent(0, "a2", "ACGT" * 50),
+                    tchunks.ChunkEvent(1, "b", "acgt" * 50),
+                    tchunks.ChunkEvent(2, "c", "ACGTN" * 40)])
+    after = (list(ce._read_id), ce._blen.tolist(), ce._chunks.tolist(),
+             ce._done.tolist(), ce._dev_buf, len(ce._inflight))
+    assert before[:4] == after[:4] == (["a", "b", ""], [200, 200, 0],
+                                       [1, 1, 0], [False] * 3)
+    assert torch.equal(before[4], after[4]) and before[5] == after[5]
+
+
+def _tick_stream(genome, n_ticks=200, channels=24, chunk_len=200, seed=5):
+    """A seeded stream of process() calls: each channel on a read of
+    150-1500 bases (panel, other draft or junk, a quarter lower case), a
+    new read as soon as one ends (a short final piece, then a reset);
+    about one call in eight hands a channel two chunks (sometimes its
+    read's end and the next read's start), and some reads open with an
+    empty chunk.  Events ignore decisions, so decided channels keep
+    sending and pipelined ones overrun max_chunks."""
+    rng = np.random.default_rng(seed)
+    n_read = [0]
+
+    def new_read():
+        n = int(rng.integers(150, 1500))
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            s = int(rng.integers(20000, 40000 - n))
+            seq = genome["ctgA"][s:s + n]
+        elif kind == 1:
+            s = int(rng.integers(40000, 60000 - n))
+            seq = genome["ctgA"][s:s + n]
+        else:
+            seq = "".join(BASES[rng.integers(0, 4, n)])
+        if rng.random() < 0.25:
+            seq = seq.lower()
+        n_read[0] += 1
+        return ["r%d" % n_read[0], seq, 0, rng.random() < 0.1]
+
+    reads = [new_read() for _ in range(channels)]
+
+    def take(c):
+        rd = reads[c]
+        if rd[3]:                       # an empty chunk opens the read
+            rd[3] = False
+            return tchunks.ChunkEvent(c, rd[0], "")
+        ev = tchunks.ChunkEvent(c, rd[0], rd[1][rd[2]:rd[2] + chunk_len])
+        rd[2] += chunk_len
+        if rd[2] >= len(rd[1]):
+            reads[c] = new_read()
+        return ev
+
+    ticks = []
+    for _ in range(n_ticks):
+        chans = np.flatnonzero(rng.random(channels) < 0.7).tolist()
+        ev = [take(c) for c in chans]
+        if chans and rng.random() < 0.125:
+            ev.insert(int(rng.integers(0, len(ev) + 1)),
+                      take(int(rng.choice(chans))))
+        ticks.append(ev)
+    return ticks
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_device_tick_arguments_equal_jax(setup, monkeypatch, depth):
+    """DeviceChunkEngine of both packages over _tick_stream: the five host
+    arguments of every decide_chunk_tick (packed rows, scatter channels and
+    slots, decide channels, lengths) equal in dtype, shape and bytes, and
+    the decisions equal, at batch 8 under calls of ~17 events."""
+    genome, _, engines = setup
+    pad = 24                    # the channel count, the scatter pad row
+    ticks = _tick_stream(genome, channels=pad)
+
+    def scenario(mod, eng):
+        args, tick = [], eng.decide_chunk_tick
+
+        def spy(buf, *host):
+            args.append(tuple((np.asarray(x).dtype.str, np.shape(x),
+                               np.asarray(x).tobytes()) for x in host))
+            return tick(buf, *host)
+        monkeypatch.setattr(eng, "decide_chunk_tick", spy)
+        ce = mod.DeviceChunkEngine(
+            eng, n_channels=pad, chunk_len=200, batch=8,
+            policy=mod.ChunkPolicy(max_chunks=4), pipeline_depth=depth)
+        decs = [[_dec(d) for d in ce.process(
+            [mod.ChunkEvent(e.channel, e.read_id, e.seq) for e in ev])]
+            for ev in ticks]
+        decs.append([_dec(d) for d in ce.drain()])
+        monkeypatch.undo()
+        return args, decs
+    args, decs = _both(setup, scenario)
+    assert len(args) > len(ticks) and sum(map(len, decs)) > 100
+    assert {d[2] for t in decs for d in t} == {PROCEED, UNBLOCK, STOP}
+    sc = [np.frombuffer(a[1][2], dtype=a[1][0]) for a in args]
+    dc = [np.frombuffer(a[3][2], dtype=a[3][0]) for a in args]
+    # rows that decide but scatter nothing: empty chunks, full buffers
+    assert sum(((s == pad) & (d != pad)).sum() for s, d in zip(sc, dc))
+    assert sum(len(ev) != len({e.channel for e in ev}) for ev in ticks) >= 10
+    assert sum(len(ev) > 8 for ev in ticks) >= 100
 
 
 def test_tick_never_duplicates_a_real_channel(setup, monkeypatch):

@@ -187,11 +187,32 @@ def test_chunk_engine_tick_spans(cpu, engine, tmp_path, kind):
         assert t["decide.upload"]["parent"] == "chunks.submit"
     assert t["chunks.submit"]["counts"] == {
         "rows": 8 * len(ticks), "live": sum(len(ev) for ev in ticks)}
+    if kind == "DeviceChunkEngine":
+        assert t["chunks.stage"]["counts"] == {
+            "events": sum(len(ev) for ev in ticks), "runs": len(ticks)}
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     names = {e.get("name") for e in json.loads(path.read_text())
              ["traceEvents"]}
     assert {"cornetto." + n for n in want} <= names
+
+
+def test_chunk_stage_counts_runs(cpu, engine):
+    """A call in which a channel repeats is staged as two runs of distinct
+    channels: chunks.stage counts its 3 events and 2 runs, and the
+    repeated channel decides once."""
+    from cornetto_tpu_torch.livefish import chunks
+    genome, eng = engine
+    s = genome["ctgA"][45000:45600]
+    ce = chunks.DeviceChunkEngine(eng, n_channels=8, chunk_len=200, batch=8)
+    with _recording():
+        got = ce.process([chunks.ChunkEvent(0, "r0", s[:200]),
+                          chunks.ChunkEvent(1, "r1", s[200:400]),
+                          chunks.ChunkEvent(0, "r0", s[200:400])])
+    t = profiling.tally()
+    assert t["chunks.stage"]["counts"] == {"events": 3, "runs": 2}
+    assert t["chunks.submit"]["counts"] == {"rows": 8, "live": 2}
+    assert sorted((d.channel, d.n_chunks) for d in got) == [(0, 2), (1, 1)]
 
 
 def test_index_build_spans(cpu):
