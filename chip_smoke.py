@@ -73,8 +73,7 @@ not supported"; PERF.md section 7).  The full run:
    batches with telomeric arrays at RS_SHAPES: the doubling-cap lengths,
    lengths about the bitset's words and lanes, and rows past the bitset's
    4,096 bases on the row walk, each bit-equal to the plain version for
-   both motifs and timed by CUDA-graph replay; at (4096, 450) and (4096,
-   1800) the row walk, the first design, too), and times both; SDUST's
+   both motifs and timed by CUDA-graph replay), and times both; SDUST's
    two designs are timed in turns (old, new, new, old) on the slice chunks
    alone, the seeded rows alone, the costliest row alone (by the plain
    version's find_perfect row-steps) and the main-path case; then the two
@@ -212,7 +211,7 @@ WIN, INC = 2500, 50                      # boringbits' default window
 # bitset, four bytes a compare (an XOR and an OR for each of its 8 words a
 # motif code) and 3 ops a doubling step (stats_word_ops; the TPU kernel's
 # dense count, 2k byte compares and 3 ops a doubling step a base, is
-# printed beside it: the first design was held to it).  The fused
+# printed beside it).  The fused
 # decision step moves the packed reads
 # (with their bitmap or lengths), one bucket row a probe of each valid
 # window of this run's reads, a panel byte and its outputs a read; its
@@ -222,7 +221,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 EXTRACT_OPS_KMER = 25
 SDUST_OPS_BASE, SDUST_OPS_ROW_STEP = 20, 8
 # run-stats shapes of phase 11: the read batches at 450 and 1800 (the main
-# shapes, timed against the first design too), the doubling-cap lengths, rows
+# shapes, also timed by a wrapper call and held to their bound), the
+# doubling-cap lengths, rows
 # shorter than the motif, lengths about the bitset's 32-position words and
 # its 32-lane groups (1,024 positions), the bitset's longest row and rows
 # past it (the row walk)
@@ -1693,7 +1693,7 @@ def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
     its ms and plain_ms are the main-path case's."""
     import torch
     from cornetto_tpu_torch.kernels.sdust import max_intervals
-    from cornetto_tpu_torch.kernels.telo import (_stats_launch, _steps_for,
+    from cornetto_tpu_torch.kernels.telo import (_steps_for,
                                                  telo_match_mask,
                                                  telo_match_mask_ref,
                                                  telo_match_positions,
@@ -1796,41 +1796,26 @@ def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
     for B, L in RS_SHAPES:
         steps = _steps_for(L - k + 1, k)
         x = torch.from_numpy(_telo_reads(seed, B, L)).to(dev)
-        # the first design at the main shapes: the row walk (route 1) into
-        # outputs allocated once, and the cast of its terminal bytes to
-        # bool that its wrapper made (its motif upload, a host copy, cannot
-        # be captured)
-        old = None if L not in (450, 1800) else (
-            torch.empty(B, dtype=torch.int32, device=dev),
-            torch.empty(B, dtype=torch.int32, device=dev),
-            torch.empty(B, dtype=torch.bool, device=dev),
-            torch.zeros(B, dtype=torch.uint8, device=dev))
         for motif in (TTAGGG, CCCTAA):
             ref = telo_run_stats_ref(x, motif)
-            runs = [("bitset" if L <= STATS_BITSET_MAX_L else "row walk",
-                     telo_run_stats(x, motif))]
-            if old:
-                _stats_launch(x, motif, 24, 1, *old[:3])
-                runs.append(("row walk (first design)", old[:3]))
-            for name, got in runs:
-                e = max(int((g.int() - r.int()).abs().max())
-                        for g, r in zip(got, ref))
-                worst = max(worst, e)
-                log("[11 annotation kernels] telo_run_stats (%d, %d) motif "
-                    "%s, %s: max_abs_err=%d, reads with a match %d, longest "
-                    "%d copies, terminal %d"
-                    % (B, L, motif, name, e, int((got[0] > 0).sum()),
-                       int(got[1].max()), int(got[2].sum())))
-                if e or not all(g.dtype == r.dtype and torch.equal(g, r)
-                                for g, r in zip(got, ref)):
-                    fail("run-stats kernel disagrees with its plain version")
+            got = telo_run_stats(x, motif)
+            e = max(int((g.int() - r.int()).abs().max())
+                    for g, r in zip(got, ref))
+            worst = max(worst, e)
+            log("[11 annotation kernels] telo_run_stats (%d, %d) motif %s, "
+                "%s: max_abs_err=%d, reads with a match %d, longest %d "
+                "copies, terminal %d"
+                % (B, L, motif,
+                   "bitset" if L <= STATS_BITSET_MAX_L else "row walk", e,
+                   int((got[0] > 0).sum()), int(got[1].max()),
+                   int(got[2].sum())))
+            if e or not all(g.dtype == r.dtype and torch.equal(g, r)
+                            for g, r in zip(got, ref)):
+                fail("run-stats kernel disagrees with its plain version")
         t = dict(ms=graph_ms(lambda: telo_run_stats(x, TTAGGG)))
         line = "graph replay %.4f ms" % t["ms"]
-        if old:
+        if L in (450, 1800):
             t.update(
-                old_ms=graph_ms(lambda: (_stats_launch(x, TTAGGG, 24, 1,
-                                                       *old[:3]),
-                                         old[3].to(torch.bool))),
                 call_ms=cuda_ms(lambda: telo_run_stats(x, TTAGGG), 200),
                 plain_ms=cuda_ms(lambda: telo_run_stats_ref(x, TTAGGG), 10),
                 bytes=B * L + 9 * B,
@@ -1838,19 +1823,17 @@ def phase_annotation_kernels(seed: int, slice_fa: str, draft: str):
                 dense_ops=B * L * (2 * k + 3 * steps))
             b_ms, b_by = bound(t)
             dense_ms = t["dense_ops"] / INT32_OPS_PER_S * 1e3
-            line += ("; the first design (row walk + bool cast) %.4f ms "
-                     "(graph replay); a wrapper call back to back %.4f ms; "
-                     "plain %.4f ms; "
+            line += ("; a wrapper call back to back %.4f ms; plain %.4f ms; "
                      "bound %.4f ms (%s; %d bytes, %d word ops) = %.1f%% of "
                      "it reached; the TPU kernel's dense count, %d ops, "
                      "over the int32 rate: %.4f ms"
-                     % (t["old_ms"], t["call_ms"], t["plain_ms"], b_ms, b_by,
+                     % (t["call_ms"], t["plain_ms"], b_ms, b_by,
                         t["bytes"], t["ops"], 100 * b_ms / t["ms"],
                         t["dense_ops"], dense_ms))
         times[(B, L)] = t
         log("[11 annotation kernels] telo_run_stats (%d, %d) TTAGGG: %s"
             % (B, L, line))
-        del x, old
+        del x
     out["telo_run_stats"] = dict(err=worst, times=times,
                                  **times[(4096, 450)])
     # the doubling cap: 3 copies in 18 bases report 2, as the JAX function
@@ -2227,10 +2210,8 @@ def _replay(idx_path: str, fq: str, argv, out: str):
             torch.cuda.synchronize()
         st["replay_s"] += time.perf_counter() - t0
         return res
-    for cls in (chunks.ChunkDecisionEngine, chunks.DeviceChunkEngine):
-        for name in ("process", "drain"):
-            if name in vars(cls):
-                counted(cls, name)
+    for name in ("process", "drain"):        # both engines' (_ChunkEngine)
+        counted(chunks._ChunkEngine, name)
     saved["replay"] = chunks.replay_read_until
     chunks.replay_read_until = timed
     decide_packed.launches = 0
@@ -4040,14 +4021,12 @@ def main():
         % (sd["ms"], sd["heavy_rows"], sd["old_ms"], sd["plain_ms"],
            *bound(sd), card))
     for (B, L), t in ak["telo_run_stats"]["times"].items():
-        if "old_ms" in t:
+        if "call_ms" in t:
             log("[7 numbers] telomere run-stats kernel at (%d, %d): %.4f ms "
-                "by graph replay (the first design, row walk + bool cast, "
-                "%.4f ms), a wrapper call back to back %.4f ms, bound %.4f "
-                "ms (%s), "
-                "plain %.4f ms (%s)" % (B, L, t["ms"], t["old_ms"],
-                                        t["call_ms"], *bound(t),
-                                        t["plain_ms"], card))
+                "by graph replay, a wrapper call back to back %.4f ms, bound "
+                "%.4f ms (%s), plain %.4f ms (%s)"
+                % (B, L, t["ms"], t["call_ms"], *bound(t), t["plain_ms"],
+                   card))
     for _, C in REPLAY_CELLS:
         h, d, t = rp[(C, "host")], rp[(C, "device")], rp[(C, "tick")]
         log("[7 numbers] livefish replay at %d channels, %d reads: %d "

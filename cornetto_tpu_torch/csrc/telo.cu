@@ -47,8 +47,8 @@
 //   thresh, position 0 only), so they are bit-equal to telo_run_stats_jax.
 //   Bound by its bytes, the rows read once (0.00056 ms at 4096 x 450 on
 //   an H100); the bitset's operations, four bytes a compare and 32
-//   positions a doubling step, take less.  Two routes, chosen per call by
-//   the launcher:
+//   positions a doubling step, take less.  Two kernels, chosen per call by
+//   the row length and the motif:
 //   - the bitset kernel (stats_bits_kernel), for rows of up to kStatsMaxL =
 //     4,096 bases and motifs of up to kMotifMax = 64 codes: a warp
 //     (kStatsLanes = 32 lanes) a read and up to 8 reads a block, no block
@@ -61,14 +61,14 @@
 //     stopping at the first empty level; the capped longest run comes from
 //     lifting a set of positions from the top level down, and terminal
 //     from lifting bit 0.  A warp a read beat 16 lanes, and the doubling
-//     beat a per-start walk on the bitset (bench_telo_stats.py: 0.0060 vs
-//     0.0075 and 0.0076 ms at 4096 x 450 by graph replay on an H100);
+//     beat a per-start walk on the bitset (0.0060 vs 0.0075 and 0.0076 ms
+//     at 4096 x 450 by graph replay on an H100);
 //   - the row walk (stats_walk_kernel, the first design), for longer rows and
 //     for motifs of more than 64 codes (then read from device memory): one
 //     block a read, threads striding over the positions with byte compares
 //     with an early exit; at each start of a stride-k run (a match with no
 //     match k before it) a thread walks the run; the block reduces.
-//   Either route is one launch, writing terminal as 0/1 bytes into the
+//   Either kernel is one launch, writing terminal as 0/1 bytes into the
 //   caller's bool tensor.
 
 // Plain C interface, loaded with ctypes (cornetto_tpu_torch/kernels/_build.py);
@@ -553,17 +553,15 @@ extern "C" int cornetto_telo_mask(const void* codes, long long B, long long L,
 // host memory, passed to the kernel by value when k <= kMotifMax; motif_dev:
 // the same codes on the device, needed (and read) only when k > kMotifMax;
 // steps = ceil(log2(max((L - k + 1) // k, 1))) (the TPU kernel's doubling
-// passes), thresh = ceil(min_run_bases / k); route 0 takes the bitset for
-// rows of up to kStatsMaxL bases and k <= kMotifMax and the row walk
-// otherwise, route 1 the row walk always.  Writes n (B,) int32, longest
-// (B,) int32, terminal (B,) bytes 0/1 (a bool tensor).  One launch; returns
-// a cudaError_t (0 = launched).
+// passes), thresh = ceil(min_run_bases / k).  The bitset kernel runs for
+// rows of up to kStatsMaxL bases and k <= kMotifMax, the row walk
+// otherwise.  Writes n (B,) int32, longest (B,) int32, terminal (B,) bytes
+// 0/1 (a bool tensor).  One launch; returns a cudaError_t (0 = launched).
 extern "C" int cornetto_telo_stats(const void* codes, long long B,
                                    long long L, const void* motif_host,
                                    const void* motif_dev, int k, int steps,
-                                   int thresh, int route, void* n,
-                                   void* longest, void* terminal,
-                                   void* stream) {
+                                   int thresh, void* n, void* longest,
+                                   void* terminal, void* stream) {
   if (B < 1 || B > 0x7FFFFFFFLL || L < 1 || k < 1 || steps < 0 ||
       steps > 62 || (k <= kMotifMax ? motif_host == nullptr
                                     : motif_dev == nullptr))
@@ -578,7 +576,7 @@ extern "C" int cornetto_telo_stats(const void* codes, long long B,
   int32_t* no = static_cast<int32_t*>(n);
   int32_t* lo = static_cast<int32_t*>(longest);
   uint8_t* to = static_cast<uint8_t*>(terminal);
-  if (route == 0 && L <= kStatsMaxL && k <= kMotifMax) {
+  if (L <= kStatsMaxL && k <= kMotifMax) {
     const int Li = static_cast<int>(L);
     return static_cast<int>(
         k > 16 ? launch_bits<64>(c, B, Li, mv, k, steps, thresh, no, lo, to,

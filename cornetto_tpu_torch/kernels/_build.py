@@ -4,8 +4,13 @@ Each ``csrc/<name>.cu`` has a plain C interface; it is compiled with nvcc
 for Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at
 the root of the checkout, at first use, and loaded with ctypes.  The
 library's file name carries a hash of the source, of every shared header
-``csrc/*.cuh`` and of the flags, so an edited source or header rebuilds.  A failed build raises: nothing falls back to a plain
-version on a CUDA tensor.
+``csrc/*.cuh`` and of the flags, so an edited source or header rebuilds.  A
+failed build raises: nothing falls back to a plain version on a CUDA tensor.
+
+Every entry point returns an int; one that launches returns a cudaError_t
+and takes the stream as its last argument.  ``bind`` types an entry point,
+``launch`` calls one on a device's current stream and raises on a nonzero
+return.
 """
 
 import ctypes
@@ -15,6 +20,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -26,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _libs = {}
+# argument letters of bind -> ctypes type
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "s": ctypes.c_char_p}
 # name -> (seconds, nvcc's stderr incl. the -Xptxas -v register report)
 # for kernels built by this process
 build_info = {}
@@ -78,3 +88,23 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _libs[name] = lib
     return lib
+
+
+def bind(name: str, entry: str, args: str):
+    """Entry point ``entry`` of ``csrc/<name>.cu`` (built and loaded at first
+    use), typed on first use: returns int, one argument a letter of
+    ``args`` (p a pointer, i an int, l a long long, s a char pointer)."""
+    fn = getattr(load(name), entry)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[c] for c in args]
+    return fn
+
+
+def launch(fn, what: str, device, *args) -> None:
+    """Call a bound entry point with ``args`` and the current stream of
+    ``device``, without synchronising; a nonzero return raises."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("%s launch failed: CUDA error %d" % (what, err))

@@ -14,8 +14,6 @@ per-contig vote reduction) and ``_decide_from_minima`` (best contig, exact
 split-sum position mean, panel test).
 """
 
-import ctypes
-
 import torch
 
 from cornetto_tpu_torch.kernels import _build
@@ -226,17 +224,6 @@ def _check(btable, packed, nmask, panel_mask, L, k, w, bin_size, lengths):
         raise ValueError("bin_size must be >= 1 (got %d)" % bin_size)
 
 
-def _lib():
-    lib = _build.load(_KERNEL)
-    fn = lib.cornetto_decide_packed
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.restype = ci
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, ci, ci, ci, ci, ci, ci,
-                       ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp]
-    return fn
-
-
 def decide_packed(btable, packed, nmask, panel_mask, L: int, k: int, w: int,
                   min_hits: int, bin_size: int, bucket_shift: int,
                   two_choice: bool, lengths=None, fused: bool = False):
@@ -275,19 +262,15 @@ def decide_packed(btable, packed, nmask, panel_mask, L: int, k: int, w: int,
             [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(5)]
         ptrs = [None] + [o.data_ptr() for o in outs]
     C, bins = panel_mask.shape
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(packed.data_ptr(),
-                 None if nmask is None else nmask.data_ptr(),
-                 None if lengths is None else lengths.data_ptr(),
-                 btable.data_ptr(), btable.shape[0].bit_length() - 1,
-                 btable.shape[1] // 2, panel_mask.data_ptr(), C, bins, B, L,
-                 k, w, min_hits, bin_size, bucket_shift, int(two_choice),
-                 *ptrs, stream)
-    if err != 0:
-        raise RuntimeError("decide kernel launch failed: CUDA error %d"
-                           % err)
+    fn = _build.bind(_KERNEL, "cornetto_decide_packed",
+                     "ppppiipiiiiiiiiiipppppppp")
+    _build.launch(fn, "decide kernel", dev, packed.data_ptr(),
+                  None if nmask is None else nmask.data_ptr(),
+                  None if lengths is None else lengths.data_ptr(),
+                  btable.data_ptr(), btable.shape[0].bit_length() - 1,
+                  btable.shape[1] // 2, panel_mask.data_ptr(), C, bins, B, L,
+                  k, w, min_hits, bin_size, bucket_shift, int(two_choice),
+                  *ptrs)
     decide_packed.launches += 1
     return outs[0] if fused else tuple(outs)
 

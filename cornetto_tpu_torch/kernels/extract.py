@@ -8,8 +8,6 @@ PyTorch version ``extract_minima_ref`` for tensors on the CPU; on a CUDA
 tensor it launches or raises, never falls back.
 """
 
-import ctypes
-
 import torch
 
 from cornetto_tpu_torch.kernels import _build
@@ -70,16 +68,6 @@ def _check(packed, nmask, L, k, w, lengths):
             raise ValueError("%s must be contiguous" % name)
 
 
-def _lib():
-    lib = _build.load(_KERNEL)
-    fn = lib.cornetto_extract_minima
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.restype = ci
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
-    return fn
-
-
 def extract_minima(packed: torch.Tensor, nmask, L: int, k: int, w: int,
                    lengths=None):
     """packed (B, ceil(L/4)) uint8 2-bit codes (kernels.minimizer.
@@ -102,16 +90,12 @@ def extract_minima(packed: torch.Tensor, nmask, L: int, k: int, w: int,
     nwin = (L - k + 1) // w
     hmin = torch.empty((B, nwin), dtype=torch.int32, device=packed.device)
     valid = torch.empty((B, nwin), dtype=torch.bool, device=packed.device)
-    fn = _lib()
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(packed.data_ptr(),
-                 None if nmask is None else nmask.data_ptr(),
-                 None if lengths is None else lengths.data_ptr(),
-                 B, L, k, w, hmin.data_ptr(), valid.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("extract_minima kernel launch failed: CUDA "
-                           "error %d" % err)
+    fn = _build.bind(_KERNEL, "cornetto_extract_minima", "pppiiiippp")
+    _build.launch(fn, "extract_minima kernel", packed.device,
+                  packed.data_ptr(),
+                  None if nmask is None else nmask.data_ptr(),
+                  None if lengths is None else lengths.data_ptr(),
+                  B, L, k, w, hmin.data_ptr(), valid.data_ptr())
     extract_minima.launches += 1
     return hmin, valid
 

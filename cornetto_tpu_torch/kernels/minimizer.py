@@ -114,6 +114,16 @@ def minimizers_native(codes: np.ndarray, k: int = DEFAULT_K,
     return pos[keep], hashes[keep]
 
 
+def pack_2bit(codes: np.ndarray) -> np.ndarray:
+    """The packed plane of ``pack_reads``: (B, L) uint8 codes < 4, L a
+    multiple of 4 and each row contiguous -> (B, L/4) uint8, four codes a
+    byte, the first in the low bits.  Each little-endian word of four codes
+    folds into its low byte."""
+    w = codes.view("<u4")
+    w = w | (w >> 6)
+    return (w | (w >> 12)).astype(np.uint8)
+
+
 def pack_reads(codes: np.ndarray):
     """Host-side 2-bit packing for cheap host->device transfer:
     (B, L) uint8 codes (0..4) -> (packed (B, ceil(L/4)) uint8,
@@ -121,14 +131,12 @@ def pack_reads(codes: np.ndarray):
     B, L = codes.shape
     L4 = -(-L // 4) * 4
     L8 = -(-L // 8) * 8
-    c4 = np.full((B, L4), 0, dtype=np.uint8)
+    c4 = np.zeros((B, L4), dtype=np.uint8)
     c4[:, :L] = codes & 3
-    packed = (c4[:, 0::4] | (c4[:, 1::4] << 2) | (c4[:, 2::4] << 4)
-              | (c4[:, 3::4] << 6))
     n8 = np.zeros((B, L8), dtype=np.uint8)
     n8[:, :L] = codes >= 4
     bits = np.packbits(n8, axis=1, bitorder="little")
-    return packed, bits
+    return pack_2bit(c4), bits
 
 
 def pack_codes(codes: torch.Tensor):

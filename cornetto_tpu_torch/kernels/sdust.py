@@ -24,8 +24,6 @@ word's count): that needs T < 5, so ``sdust_device`` takes T >= 5 and
 ``sdust_dp`` keeps the JAX kernel's result for every T (``check_params``).
 """
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -324,18 +322,6 @@ def sdust_dp_ref(codes: torch.Tensor, row_off: torch.Tensor, clen: int,
     return (*out, steps) if return_steps else tuple(out)
 
 
-def _lib():
-    lib = _build.load(_KERNEL)
-    light, heavy = lib.cornetto_sdust_light, lib.cornetto_sdust_heavy
-    if light.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        light.restype = heavy.restype = ci
-        light.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp,
-                          vp]
-        heavy.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp]
-    return light, heavy
-
-
 def sdust_dp(codes: torch.Tensor, row_off: torch.Tensor, clen: int,
              T: int = 20, W: int = DEF_W, budget: int = None,
              stats: dict = None):
@@ -368,31 +354,25 @@ def sdust_dp(codes: torch.Tensor, row_off: torch.Tensor, clen: int,
     count = torch.empty(n, dtype=torch.int32, device=dev)
     heavy_rows = torch.empty(n, dtype=torch.int32, device=dev)
     n_heavy = torch.zeros(1, dtype=torch.int32, device=dev)
-    light, heavy = _lib()
+    light = _build.bind(_KERNEL, "cornetto_sdust_light", "ppiiiiiipppppp")
+    heavy = _build.bind(_KERNEL, "cornetto_sdust_heavy", "ppiiiiipppppp")
     args = (codes.data_ptr(), row_off.data_ptr())
-    outs = (starts.data_ptr(), fins.data_ptr(), count.data_ptr())
+    outs = (starts.data_ptr(), fins.data_ptr(), count.data_ptr(),
+            heavy_rows.data_ptr(), n_heavy.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
             if stats is not None else None
         if ev:
             ev[0].record(stream)
-        err = light(*args, n, clen, T, W, maxi, budget, *outs,
-                    heavy_rows.data_ptr(), n_heavy.data_ptr(),
-                    stream.cuda_stream)
-        if err != 0:
-            raise RuntimeError("sdust light-pass launch failed: CUDA error "
-                               "%d" % err)
+        _build.launch(light, "sdust light-pass", dev, *args, n, clen, T, W,
+                      maxi, budget, *outs)
         sdust_dp.launches += 1
         if ev:
             ev[1].record(stream)
         if budget:
-            err = heavy(*args, n, clen, T, W, maxi, *outs,
-                        heavy_rows.data_ptr(), n_heavy.data_ptr(),
-                        stream.cuda_stream)
-            if err != 0:
-                raise RuntimeError("sdust heavy-pass launch failed: CUDA "
-                                   "error %d" % err)
+            _build.launch(heavy, "sdust heavy-pass", dev, *args, n, clen, T,
+                          W, maxi, *outs)
             sdust_dp.launches += 1
         if ev:
             ev[2].record(stream)

@@ -19,8 +19,6 @@ JAX module's host helpers.  telofind's device path takes
 positions with ``scan_runs_from_positions``.
 """
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -96,18 +94,6 @@ def _check(codes, motif_codes):
     return motif
 
 
-def _lib():
-    lib = _build.load(_KERNEL)
-    if lib.cornetto_telo_mask.argtypes is None:
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cornetto_telo_mask.restype = ci
-        lib.cornetto_telo_mask.argtypes = [vp, cl, cl, vp, ci, vp, vp]
-        lib.cornetto_telo_stats.restype = ci
-        lib.cornetto_telo_stats.argtypes = [vp, cl, cl, ctypes.c_char_p, vp,
-                                            ci, ci, ci, ci, vp, vp, vp, vp]
-    return lib
-
-
 def _motif_on(motif, dev) -> torch.Tensor:
     """The motif codes on the card, copied from pinned memory on the current
     stream: a copy from pageable memory would first wait for the stream to
@@ -144,15 +130,10 @@ def telo_match_mask(codes: torch.Tensor, motif_codes) -> torch.Tensor:
         return telo_match_mask_ref(codes, motif)
     B, L = codes.shape
     out = torch.empty((B, L), dtype=torch.int8, device=codes.device)
-    lib = _lib()
-    with torch.cuda.device(codes.device):
-        mt = _motif_on(motif, codes.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cornetto_telo_mask(codes.data_ptr(), B, L, mt.data_ptr(),
-                                     len(motif), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("telomere mask kernel launch failed: CUDA error %d"
-                           % err)
+    mt = _motif_on(motif, codes.device)
+    fn = _build.bind(_KERNEL, "cornetto_telo_mask", "pllpipp")
+    _build.launch(fn, "telomere mask kernel", codes.device, codes.data_ptr(),
+                  B, L, mt.data_ptr(), len(motif), out.data_ptr())
     telo_match_mask.launches += 1
     return out
 
@@ -228,30 +209,6 @@ def telo_run_stats_ref(codes: torch.Tensor, motif_codes,
 MOTIF_BY_VALUE = 64         # motif codes the run-stats kernel takes by value
 
 
-def _stats_launch(codes, motif, min_run_bases: int, route: int, n, longest,
-                  terminal):
-    """Launch the run-stats kernel into the given outputs: route 0 picks the
-    bitset kernel for rows of up to 4,096 bases and motifs of up to 64
-    codes and the row walk otherwise; route 1 (chip_smoke.py's timing
-    of the first design) takes the row walk at any length.  A motif of up to 64
-    codes is a kernel argument; a longer one is copied to the card first."""
-    B, L = codes.shape
-    k = len(motif)
-    dev = codes.device
-    lib = _lib()
-    with torch.cuda.device(dev):
-        mt = _motif_on(motif, dev) if k > MOTIF_BY_VALUE else None
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cornetto_telo_stats(
-            codes.data_ptr(), B, L, bytes(motif),
-            None if mt is None else mt.data_ptr(), k,
-            _steps_for(L - k + 1, k), -(-min_run_bases // k), route,
-            n.data_ptr(), longest.data_ptr(), terminal.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("telomere stats kernel launch failed: CUDA error "
-                           "%d" % err)
-
-
 def telo_run_stats(codes: torch.Tensor, motif_codes,
                    min_run_bases: int = 24):
     """codes (B, L) uint8.  Returns (n_matches (B,) int32, longest tandem run
@@ -261,19 +218,27 @@ def telo_run_stats(codes: torch.Tensor, motif_codes,
 
     A CUDA input is one kernel launch on the current stream, without
     synchronising, and adds one to ``telo_run_stats.launches``: the bitset
-    kernel (a warp a read) for rows of up to 4,096 bases, the row walk
-    (a block a read) for longer rows (``_stats_launch``)."""
+    kernel (a warp a read) for rows of up to 4,096 bases and motifs of up
+    to 64 codes, the row walk (a block a read) otherwise.  A motif of up to
+    64 codes is a kernel argument; a longer one is copied to the card
+    first."""
     motif = _check(codes, motif_codes)
     if codes.device.type == "cpu":
         return telo_run_stats_ref(codes, motif, min_run_bases)
-    B, _ = codes.shape
+    B, L = codes.shape
     if B >= 1 << 31:
         raise ValueError("at most 2^31-1 reads (got %d)" % B)
+    k = len(motif)
     dev = codes.device
     n = torch.empty(B, dtype=torch.int32, device=dev)
     longest = torch.empty(B, dtype=torch.int32, device=dev)
     terminal = torch.empty(B, dtype=torch.bool, device=dev)
-    _stats_launch(codes, motif, min_run_bases, 0, n, longest, terminal)
+    mt = _motif_on(motif, dev) if k > MOTIF_BY_VALUE else None
+    fn = _build.bind(_KERNEL, "cornetto_telo_stats", "pllspiiipppp")
+    _build.launch(fn, "telomere stats kernel", dev, codes.data_ptr(), B, L,
+                  bytes(motif), None if mt is None else mt.data_ptr(), k,
+                  _steps_for(L - k + 1, k), -(-min_run_bases // k),
+                  n.data_ptr(), longest.data_ptr(), terminal.data_ptr())
     telo_run_stats.launches += 1
     return n, longest, terminal
 

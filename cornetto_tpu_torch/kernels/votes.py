@@ -12,8 +12,6 @@ for tensors on the CPU; on a CUDA tensor they launch or raise, never fall
 back.
 """
 
-import ctypes
-
 import torch
 
 from cornetto_tpu_torch.kernels import _build
@@ -99,27 +97,10 @@ def _check_policy(stats, panel_mask, bin_size):
         raise ValueError("bin_size must be >= 1 (got %d)" % bin_size)
 
 
-def _lib():
-    lib = _build.load(_KERNEL)
-    if lib.cornetto_sharded_votes.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.cornetto_votes_shared_limit.restype = ci
-        lib.cornetto_votes_shared_limit.argtypes = []
-        fn = lib.cornetto_sharded_votes
-        fn.restype = ci
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                       vp, vp]
-        fn = lib.cornetto_policy_from_stats
-        fn.restype = ci
-        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp,
-                       vp]
-    return lib
-
-
 def shared_limit() -> int:
     """The largest C whose planes of a read the votes kernel keeps in
     shared memory (past it, global atomics into the output)."""
-    return _lib().cornetto_votes_shared_limit()
+    return _build.bind(_KERNEL, "cornetto_votes_shared_limit", "")()
 
 
 def sharded_votes(hashes, valid, btable, bucket_shift: int,
@@ -149,16 +130,12 @@ def sharded_votes(hashes, valid, btable, bucket_shift: int,
     b, M = hashes.shape
     out = torch.empty(_out_shape(b, C, parts), dtype=torch.int32,
                       device=hashes.device)
-    fn = _lib().cornetto_sharded_votes
-    with torch.cuda.device(hashes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(hashes.data_ptr(), valid.data_ptr(), btable.data_ptr(),
-                 btable.shape[0].bit_length() - 1, btable.shape[1] // 2,
-                 bucket_shift, int(two_choice), ep, shard, C, b, M, parts,
-                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("sharded votes kernel launch failed: CUDA error "
-                           "%d" % err)
+    fn = _build.bind(_KERNEL, "cornetto_sharded_votes", "pppiiiiiiiiiipp")
+    _build.launch(fn, "sharded votes kernel", hashes.device,
+                  hashes.data_ptr(), valid.data_ptr(), btable.data_ptr(),
+                  btable.shape[0].bit_length() - 1, btable.shape[1] // 2,
+                  bucket_shift, int(two_choice), ep, shard, C, b, M, parts,
+                  out.data_ptr())
     sharded_votes.launches += 1
     return out
 
@@ -183,14 +160,10 @@ def policy_from_stats(stats, panel_mask, min_hits: int, bin_size: int):
     dev = stats.device
     outs = [torch.empty(b, dtype=torch.int8, device=dev)] + \
         [torch.empty(b, dtype=torch.int32, device=dev) for _ in range(5)]
-    fn = _lib().cornetto_policy_from_stats
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(stats.data_ptr(), panel_mask.data_ptr(), b, C,
-                 panel_mask.shape[1], min_hits, bin_size,
-                 *[o.data_ptr() for o in outs], stream)
-    if err != 0:
-        raise RuntimeError("policy kernel launch failed: CUDA error %d" % err)
+    fn = _build.bind(_KERNEL, "cornetto_policy_from_stats", "ppiiiiippppppp")
+    _build.launch(fn, "policy kernel", dev, stats.data_ptr(),
+                  panel_mask.data_ptr(), b, C, panel_mask.shape[1], min_hits,
+                  bin_size, *[o.data_ptr() for o in outs])
     policy_from_stats.launches += 1
     return tuple(outs)
 

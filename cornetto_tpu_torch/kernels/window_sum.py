@@ -12,8 +12,6 @@ runs eagerly, so there are no padded jit buckets.  ``n_windows`` and the
 exact host twin ``window_stats_numpy`` are copies of the JAX module's.
 """
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -98,16 +96,6 @@ def _check(x, window, stride, n_out) -> int:
     return n_out
 
 
-def _lib():
-    lib = _build.load(_KERNEL)
-    fn = lib.cornetto_window_sums
-    if fn.argtypes is None:
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.restype = ci
-        fn.argtypes = [vp, ci, ci, cl, ci, cl, cl, vp, vp]
-    return fn
-
-
 def window_sums(x: torch.Tensor, window: int, stride: int = 1,
                 n_out=None) -> torch.Tensor:
     """x (n,) or (rows, n) int32 or uint16.  Returns int64 (..., n_out) with
@@ -126,14 +114,10 @@ def window_sums(x: torch.Tensor, window: int, stride: int = 1,
     rows = 1 if x.dim() == 1 else x.shape[0]
     out = torch.empty(x.shape[:-1] + (n_out,), dtype=torch.int64,
                       device=x.device)
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), _DTYPES[x.dtype], rows, x.shape[-1], window,
-                 stride, n_out, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("window_sums kernel launch failed: CUDA error %d"
-                           % err)
+    fn = _build.bind(_KERNEL, "cornetto_window_sums", "piilillpp")
+    _build.launch(fn, "window_sums kernel", x.device, x.data_ptr(),
+                  _DTYPES[x.dtype], rows, x.shape[-1], window, stride, n_out,
+                  out.data_ptr())
     window_sums.launches += 1
     return out
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from cornetto_tpu_torch.kernels.minimizer import (encode_bytes, encode_seq,
-                                                  pack_reads)
+                                                  pack_2bit, pack_reads)
 from cornetto_tpu_torch.livefish.decide import unpack_fused
 from cornetto_tpu_torch.utils import profiling
 
@@ -71,14 +71,22 @@ class ChunkDecision:
     nhits: int = 0
 
 
-class ChunkDecisionEngine:
-    """Per-channel read-until state machine over a batch decision engine.
+class _ChunkEngine:
+    """The per-channel read-until state machine the two chunk engines
+    share: the policy, each channel's accumulated length, chunk count, read
+    id and done flag, the batches in flight, ``process``, ``drain`` and
+    ``_resolve``.  A subclass stages a tick's events (``_stage``) and
+    launches each batch (``_submit``), which appends (channels, fused
+    result, chunk counts, read ids) to ``_inflight``.
 
-    engine: SingleChipEngine (or any object with decide_packed(packed,
-    nmask, L) -> (decision, best, est, nhits), tensors or arrays).  batch
-    is the fixed device batch per tick (one kernel launch); channels beyond
-    it queue to the next tick.  max_len = chunk_len * policy.max_chunks
-    bounds the accumulated prefix re-decided each tick.
+    engine: SingleChipEngine or ShardedEngine (livefish.decide), whose
+    fused result, (2, B) int32 (decision_core_packed_fused), is read back
+    once a batch.  It clamps nhits at 0x3FFF; a prefix of max_len bases has
+    at most (max_len - k + 1) // w windows, so the clamp binds only past
+    ~163,000 bases at w = 10.  batch is the fixed device batch per tick
+    (one kernel launch); channels beyond it queue to the next tick.
+    max_len = chunk_len * policy.max_chunks bounds the accumulated prefix
+    re-decided each tick.
     """
 
     def __init__(self, engine, n_channels: int, chunk_len: int,
@@ -100,18 +108,10 @@ class ChunkDecisionEngine:
         self.pipeline_depth = pipeline_depth
         self._inflight: List[tuple] = []
         C = self.n_channels = n_channels
-        self._buf = np.full((C, self.max_len), 4, dtype=np.uint8)
         self._blen = np.zeros(C, dtype=np.int64)
         self._chunks = np.zeros(C, dtype=np.int64)
         self._read_id: List[str] = [""] * C
         self._done = np.zeros(C, dtype=bool)   # decision already emitted
-
-    def _reset_channel(self, c: int, read_id: str) -> None:
-        self._buf[c] = 4
-        self._blen[c] = 0
-        self._chunks[c] = 0
-        self._read_id[c] = read_id
-        self._done[c] = False
 
     def process(self, events: Sequence[ChunkEvent]) -> List[ChunkDecision]:
         """Consume one tick's chunks, return decisions for every event
@@ -136,28 +136,6 @@ class ChunkDecisionEngine:
                 out.extend(self._resolve(self._inflight.pop(0)))
         return out
 
-    def _stage(self, events: Sequence[ChunkEvent], sp) -> List[tuple]:
-        """The event loop: each event's codes into its channel's buffer;
-        returns the arguments of each batch's _submit.  sp: the span
-        chunks.stage, for counts."""
-        pending: List[int] = []
-        for ev in events:
-            c = ev.channel
-            if ev.read_id != self._read_id[c]:
-                self._reset_channel(c, ev.read_id)
-            if self._done[c]:
-                continue
-            codes = encode_seq(ev.seq)
-            n = int(self._blen[c])
-            take = min(len(codes), self.max_len - n)
-            if take > 0:
-                self._buf[c, n:n + take] = codes[:take]
-                self._blen[c] = n + take
-            self._chunks[c] += 1
-            pending.append(c)
-        return [(pending[i:i + self.batch],)
-                for i in range(0, len(pending), self.batch)]
-
     def drain(self) -> List[ChunkDecision]:
         """Resolve every in-flight batch (end of run / idle tick)."""
         out: List[ChunkDecision] = []
@@ -165,32 +143,10 @@ class ChunkDecisionEngine:
             out.extend(self._resolve(self._inflight.pop(0)))
         return out
 
-    def _submit(self, chans: List[int]) -> None:
-        with profiling.span("chunks.submit", rows=self.batch,
-                            live=len(chans)):
-            rows = np.full((self.batch, self.max_len), 4, dtype=np.uint8)
-            rows[:len(chans)] = self._buf[chans]
-            packed, nmask = pack_reads(rows)
-            decide = getattr(self.engine, "decide_packed_fused",
-                             self.engine.decide_packed)
-            res = decide(packed, nmask, self.max_len)
-            # snapshot read ids + chunk counts: by the time this batch is
-            # harvested the channel may have moved on to a new read
-            # (decision arrives too late — dropped, as on a real
-            # sequencer) or received more chunks (decision still valid for
-            # its prefix)
-            self._inflight.append((list(chans), res,
-                                   self._chunks[chans].copy(),
-                                   [self._read_id[c] for c in chans]))
-
     def _resolve(self, entry) -> List[ChunkDecision]:
         chans, res, chunks_at, rids = entry
         with profiling.span("chunks.readback"):
-            if isinstance(res, tuple):
-                d, best, est, nhits = (_host(x) for x in res[:4])
-            else:
-                # the fused (2, B) int32 result: one readback a batch
-                d, best, est, nhits = unpack_fused(_host(res))
+            d, best, est, nhits = unpack_fused(_host(res))
         out: List[ChunkDecision] = []
         with profiling.span("chunks.resolve"):
             for i, c in enumerate(chans):
@@ -219,7 +175,66 @@ class ChunkDecisionEngine:
         return out
 
 
-class DeviceChunkEngine(ChunkDecisionEngine):
+class ChunkDecisionEngine(_ChunkEngine):
+    """The chunk engine with the accumulated prefixes on the host: each
+    tick packs every pending channel's whole (max_len) prefix, N codes
+    included, and decides it with the engine's decide_packed_fused."""
+
+    def __init__(self, engine, n_channels: int, chunk_len: int,
+                 policy: ChunkPolicy = ChunkPolicy(), batch: int = 512,
+                 pipeline_depth: int = 0):
+        super().__init__(engine, n_channels, chunk_len, policy, batch,
+                         pipeline_depth)
+        self._buf = np.full((n_channels, self.max_len), 4, dtype=np.uint8)
+
+    def _reset_channel(self, c: int, read_id: str) -> None:
+        self._buf[c] = 4
+        self._blen[c] = 0
+        self._chunks[c] = 0
+        self._read_id[c] = read_id
+        self._done[c] = False
+
+    def _stage(self, events: Sequence[ChunkEvent], sp) -> List[tuple]:
+        """The event loop: each event's codes into its channel's buffer;
+        returns the arguments of each batch's _submit.  sp: the span
+        chunks.stage, for counts."""
+        pending: List[int] = []
+        for ev in events:
+            c = ev.channel
+            if ev.read_id != self._read_id[c]:
+                self._reset_channel(c, ev.read_id)
+            if self._done[c]:
+                continue
+            codes = encode_seq(ev.seq)
+            n = int(self._blen[c])
+            take = min(len(codes), self.max_len - n)
+            if take > 0:
+                self._buf[c, n:n + take] = codes[:take]
+                self._blen[c] = n + take
+            self._chunks[c] += 1
+            pending.append(c)
+        return [(pending[i:i + self.batch],)
+                for i in range(0, len(pending), self.batch)]
+
+    def _submit(self, chans: List[int]) -> None:
+        with profiling.span("chunks.submit", rows=self.batch,
+                            live=len(chans)):
+            rows = np.full((self.batch, self.max_len), 4, dtype=np.uint8)
+            rows[:len(chans)] = self._buf[chans]
+            packed, nmask = pack_reads(rows)
+            res = self.engine.decide_packed_fused(packed, nmask,
+                                                  self.max_len)
+            # snapshot read ids + chunk counts: by the time this batch is
+            # harvested the channel may have moved on to a new read
+            # (decision arrives too late — dropped, as on a real
+            # sequencer) or received more chunks (decision still valid for
+            # its prefix)
+            self._inflight.append((list(chans), res,
+                                   self._chunks[chans].copy(),
+                                   [self._read_id[c] for c in chans]))
+
+
+class DeviceChunkEngine(_ChunkEngine):
     """Read-until state machine with the accumulated per-channel prefixes
     resident ON DEVICE.
 
@@ -236,8 +251,9 @@ class DeviceChunkEngine(ChunkDecisionEngine):
     lengths mask reproduces the host padding exactly; tested).
 
     Constraints (both are the sequencer operating model, asserted here):
-    - chunk_len % 4 == 0 and chunks arrive as fixed chunk_len-sized
-      pieces, except a read's final piece which may be shorter;
+    - chunk_len % 4 == 0 (the engine's init_chunk_state refuses another)
+      and chunks arrive as fixed chunk_len-sized pieces, except a read's
+      final piece which may be shorter;
     - chunks are pure ACGT (the basecaller norm): 2-bit chunk slots
       cannot carry N.  Use ChunkDecisionEngine for N-containing input.
     """
@@ -247,11 +263,6 @@ class DeviceChunkEngine(ChunkDecisionEngine):
                  pipeline_depth: int = 0):
         super().__init__(engine, n_channels, chunk_len, policy, batch,
                          pipeline_depth)
-        if chunk_len % 4:
-            raise ValueError("DeviceChunkEngine needs chunk_len %% 4 == 0 "
-                             "(got %d)" % chunk_len)
-        # replaces the host-side (C, max_len) code buffer entirely
-        self._buf = None
         self._dev_buf = engine.init_chunk_state(n_channels, chunk_len,
                                                 policy.max_chunks)
         self._pad_chan = n_channels          # sacrificial scatter row
@@ -366,12 +377,8 @@ class DeviceChunkEngine(ChunkDecisionEngine):
         the pad row."""
         B, k, pad = self.batch, len(chans), self._pad_chan
         with profiling.span("chunks.submit", rows=B) as sp:
-            # 2-bit pack, first base in the low bits: each word of four
-            # codes (little-endian, codes < 4) folds into its low byte
-            w = codes.view("<u4")
-            w = w | (w >> 6)
             packed = np.zeros((B, self.chunk_len // 4), dtype=np.uint8)
-            packed[:k] = w | (w >> 12)
+            packed[:k] = pack_2bit(codes)
             sc = np.full(B, pad, dtype=np.int32)
             sc[:k] = s_chans
             sl = np.zeros(B, dtype=np.int32)
@@ -405,7 +412,7 @@ class ReplayMetrics:
     false_reject: int = 0               # unblocked but NOT panel-origin
 
 
-def replay_read_until(engine: ChunkDecisionEngine,
+def replay_read_until(engine: _ChunkEngine,
                       reads: Sequence[Tuple[str, str, bool]],
                       unblock_overhead: int = 500) -> ReplayMetrics:
     """Replay full reads through the chunk engine as a sequencer would.

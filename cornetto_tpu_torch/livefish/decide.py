@@ -45,7 +45,8 @@ from cornetto_tpu_torch.device import resolve_device
 from cornetto_tpu_torch.dist import collectives
 from cornetto_tpu_torch.dist.multihost import local_device
 from cornetto_tpu_torch.kernels.decide import (  # noqa: F401 (re-exported)
-    _decide_from_minima, _lookup_votes, _mean_split, decide_packed)
+    _decide_from_minima, _lookup_votes, _mean_split, decide_packed,
+    pack_fused)
 from cornetto_tpu_torch.kernels.extract import extract_minima
 from cornetto_tpu_torch.kernels.minimizer import pack_codes, pack_reads
 from cornetto_tpu_torch.kernels.votes import policy_from_stats, sharded_votes
@@ -261,7 +262,7 @@ def chunk_tick_core(buf, btable, rows, s_chans, s_slots, d_chans, lengths,
     Pad rows scatter many duplicates into row C, and PyTorch does not
     define which write wins for duplicate indices on a card.  That is
     harmless only because row C's decisions are dropped
-    (livefish.chunks.ChunkDecisionEngine._resolve skips channel -1): a real
+    (the chunk engines' _resolve, livefish.chunks, skips channel -1): a real
     channel lands in one (channel, slot) at most once a tick.
 
     Then the channels' prefixes are gathered into (B, max_chunks *
@@ -312,6 +313,15 @@ class ShardedEngine:
         N-free batches, lengths (B,) int32 for short reads (nmask wins when
         both are given).  Uploads only this rank's rows."""
         return self.step(*self.upload(packed, nmask, lengths), L)
+
+    def decide_packed_fused(self, packed: np.ndarray, nmask, L: int,
+                            lengths=None):
+        """decide_packed with the TSV outputs in one (2, B) int32 tensor,
+        as SingleChipEngine.decide_packed_fused: kernels.decide.pack_fused
+        of the step's first four outputs (nhits clamped at 0x3FFF)."""
+        d, best, est, nhits, _, _ = self.decide_packed(packed, nmask, L,
+                                                       lengths)
+        return pack_fused(d, best, est, nhits)
 
     def upload(self, packed: np.ndarray, nmask, lengths=None):
         """This rank's rows of a global packed batch, on its device:
@@ -402,7 +412,8 @@ def make_sharded_engine(mesh, index: MinimizerIndex, panel_mask: np.ndarray,
 
     The returned engine takes reads (B, L) uint8 (``engine(reads)`` or
     ``engine.decide``) or packed reads (``engine.decide_packed(packed,
-    nmask, L, lengths=None)``), B divisible by dp * ep, the same global
+    nmask, L, lengths=None)``, or ``decide_packed_fused`` for the (2, B)
+    form), B divisible by dp * ep, the same global
     batch on every rank of the mesh; each rank uploads and extracts only
     its own block of rows (block dp_idx * ep + ep_idx, the row order of
     P(("dp", "ep"))) and holds only its shard of the table,

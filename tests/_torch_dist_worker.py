@@ -108,6 +108,13 @@ def _chunk_case(plan, inp, out):
                 dtype=np.int64).reshape(-1, 2)
     out["chunks/done"] = np.array([ce1._done[0], ce1._done[1],
                                    ceE._done[0], ceE._done[1]])
+    # the sharded engine's fused form of one batch beside its six outputs
+    args = (inp["packed"], None, int(inp["L"]))
+    out["chunks/fused"] = ceE.engine.decide_packed_fused(
+        *args, lengths=inp["lengths"]).numpy()
+    for i, r in enumerate(ceE.engine.decide_packed(*args,
+                                                   lengths=inp["lengths"])):
+        out["chunks/six/%d" % i] = r.numpy()
 
 
 def _sharded_ckpt_case(plan, inp, out):

@@ -893,13 +893,13 @@ def _fenced(code: str, mode: str):
 # window_sums' C entry point on a 4096-int32 tensor: a read of the whole
 # tensor, then one of n elements from x + shift
 WINDOW_READS = """
-from cornetto_tpu_torch.kernels.window_sum import _lib
+from cornetto_tpu_torch.kernels import _build
+fn = _build.bind("window_sum", "cornetto_window_sums", "piilillpp")
 x = torch.ones(4096, dtype=torch.int32, device="cuda")
 out = torch.empty(1, dtype=torch.int64, device="cuda")
 for n, shift in ((4096, 0), (%d, %d)):
-    err = _lib()(x.data_ptr() + 4 * shift, 0, 1, n, n, 1, 1, out.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
+    _build.launch(fn, "window_sums kernel", x.device,
+                  x.data_ptr() + 4 * shift, 0, 1, n, n, 1, 1, out.data_ptr())
     torch.cuda.synchronize()
     print("sum", n, shift, int(out.item()), flush=True)
 """

@@ -32,7 +32,7 @@ from cornetto_tpu.livefish.index import build_index, build_panel_mask
 from cornetto_tpu_torch.dist import multihost
 from cornetto_tpu_torch.dist.mesh import decision_axes
 from cornetto_tpu_torch.kernels.decide import (_lookup_votes,
-                                               _policy_from_stats)
+                                               _policy_from_stats, pack_fused)
 from cornetto_tpu_torch.kernels.extract import extract_minima_ref
 from cornetto_tpu_torch.kernels.votes import (policy_from_stats,
                                               sharded_votes)
@@ -322,7 +322,9 @@ def test_decision_axes_match_jax_defaults():
 def test_chunks_over_sharded_engine(runs, shared):
     """tests/test_livefish_chunks.py:89-112 on the port: the chunk state
     machine over the (2, 2) sharded engine gives the single-device
-    engine's actions on every rank, equal to the JAX package's."""
+    engine's actions on every rank, equal to the JAX package's; the
+    sharded engine's fused form of a batch is pack_fused of its six
+    outputs."""
     genome = shared["genome"]
     ce = ChunkDecisionEngine(jd.SingleChipEngine(shared["idx"][1],
                                                  shared["panel"]),
@@ -342,6 +344,9 @@ def test_chunks_over_sharded_engine(runs, shared):
                 got = [tuple(x) for x in res["chunks/%s/%d" % (name, t)]]
                 assert got == want[t], (name, t)
         assert res["chunks/done"].all()
+        six = [torch.from_numpy(res["chunks/six/%d" % i]) for i in range(4)]
+        np.testing.assert_array_equal(res["chunks/fused"],
+                                      pack_fused(*six).numpy())
 
 
 def test_sharded_checkpoint_round_trip_gloo(runs, shared, jax_ref):

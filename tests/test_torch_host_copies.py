@@ -501,7 +501,8 @@ class _StubEngine:
     def decide_packed_fused(self, packed, nmask, L, lengths=None):
         return self._fused(np.asarray(packed), lengths)
 
-    decide_packed = decide_packed_fused      # read (not called) by _submit
+    # read (not called) by the JAX package's _submit
+    decide_packed = decide_packed_fused
 
     def init_chunk_state(self, n_channels, chunk_len, max_chunks):
         return np.zeros((n_channels + 1, max_chunks, chunk_len // 4),

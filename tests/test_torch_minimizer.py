@@ -15,6 +15,7 @@ from cornetto_tpu.kernels.minimizer import (_hash32_np, hash32_jax,
 from cornetto_tpu_torch.kernels.minimizer import (as_i32_bits, as_u32,
                                                   hash32, read_minimizers,
                                                   unpack_reads)
+from cornetto_tpu_torch.kernels.minimizer import pack_reads as pack_reads_port
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -91,6 +92,9 @@ def test_read_minimizers_matches_host_twin():
 def test_unpack_reads_matches_jax(L):
     reads = _reads(L, 12, L, n_frac=0.05)
     packed, nmask = pack_reads(reads)
+    for got, want in zip(pack_reads_port(reads), (packed, nmask)):
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+        assert got.shape == want.shape
     want = np.asarray(unpack_reads_jax(jnp.asarray(packed),
                                        jnp.asarray(nmask), L))
     got = unpack_reads(torch.from_numpy(packed), torch.from_numpy(nmask), L)

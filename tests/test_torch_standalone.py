@@ -1,6 +1,5 @@
 """The port stands alone: no source file of ``cornetto_tpu_torch`` (nor
-``chip_smoke.py``, ``bench_decide.py``, ``bench_telo_mask.py`` or
-``bench_telo_stats.py``, nor the gloo ranks of tests/test_torch_dist.py,
+``chip_smoke.py``, nor the gloo ranks of tests/test_torch_dist.py,
 tests/_torch_dist_worker.py, nor the crash-injected stream's ranks and
 their test, tests/_torch_ckpt_worker.py and
 tests/test_torch_checkpoint_failure.py, nor the
@@ -26,8 +25,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "cornetto_tpu_torch").rglob("*.py")) + \
-    ["bench_decide.py", "bench_telo_mask.py", "bench_telo_stats.py",
-     "chip_smoke.py",
+    ["chip_smoke.py",
      "tests/_decide_cases.py",
      "tests/_torch_ckpt_worker.py",
      "tests/_torch_ragged_cases.py",
