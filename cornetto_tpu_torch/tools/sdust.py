@@ -20,10 +20,11 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 from cornetto_tpu_torch.device import resolve_device
-from cornetto_tpu_torch.io.fasta import read_fastx
+from cornetto_tpu_torch.io.fasta import read_fasta, timed_reads
 from cornetto_tpu_torch.kernels.sdust import check_params, sdust_device
 from cornetto_tpu_torch.native.sdust import sdust
 from cornetto_tpu_torch.utils import logging as log
+from cornetto_tpu_torch.utils import profiling
 from cornetto_tpu_torch.utils.parsing import c_atoi
 
 CORE = 2048      # chunk core of the device DP (sdust_pallas' default)
@@ -33,20 +34,26 @@ def run(fasta_path: str, T: int = 20, W: int = 64, out=None,
         workers: int = None, backend: str = "device",
         stats: dict = None) -> None:
     """backend "device": one sdust_device call per contig with a chunk core
-    of CORE, serial over contigs (the chunks are the parallel axis), its
-    counts and per-part seconds added to ``stats`` if given (which
-    synchronises the card at the end of each part); anything else is the
+    of CORE, serial over contigs (the chunks are the parallel axis), on the
+    record's bytes as read_fasta gives them; its counts and per-part
+    seconds added to ``stats`` if given (which synchronises the card at the
+    end of each part), with the FASTA read as the part ``read`` (the span
+    ``sdust.read``), counting ``records`` and ``squeezed`` (records whose
+    body held a line end, so took a second copy); anything else is the
     host path."""
     out = out or sys.stdout
     if backend != "device":
         _run_host(fasta_path, T, W, out, workers)
         return
     dev = resolve_device()
-    for rec in read_fastx(fasta_path):
-        ivals = sdust_device(rec.seq.encode("latin-1"), T=T, W=W, core=CORE,
-                             device=dev, stats=stats)
+    for rec in timed_reads(read_fasta(fasta_path),
+                           lambda: profiling.lap("sdust.read", stats, dev),
+                           stats):
+        ivals = sdust_device(rec.seq, T=T, W=W, core=CORE, device=dev,
+                             stats=stats)
         if ivals:
-            out.write("".join("%s\t%d\t%d\n" % (rec.name, a, b)
+            name = rec.name.decode("latin-1")
+            out.write("".join("%s\t%d\t%d\n" % (name, a, b)
                               for a, b in ivals))
 
 
@@ -56,9 +63,8 @@ def _run_host(fasta_path: str, T: int, W: int, out, workers) -> None:
     O(workers) contigs; rows are written in FASTA order."""
     nw = workers or os.cpu_count() or 1
 
-    def _mask(item):
-        name, seq = item
-        return name, sdust(seq.encode("latin-1"), T=T, W=W)
+    def _mask(rec):
+        return rec.name.decode("latin-1"), sdust(rec.seq, T=T, W=W)
 
     def _emit(fut_name_ivals):
         name, ivals = fut_name_ivals.result()
@@ -68,8 +74,8 @@ def _run_host(fasta_path: str, T: int, W: int, out, workers) -> None:
 
     with ThreadPoolExecutor(max_workers=nw) as ex:
         inflight = deque()
-        for rec in read_fastx(fasta_path):
-            inflight.append(ex.submit(_mask, (rec.name, rec.seq)))
+        for rec in read_fasta(fasta_path):
+            inflight.append(ex.submit(_mask, rec))
             while len(inflight) > 2 * nw:
                 _emit(inflight.popleft())
         while inflight:

@@ -15,6 +15,14 @@ host scan, behaves so; the encoding would map it to the uppercase code).
 Rows are byte-identical to the reference C tool's: forward then
 reverse-complement hits per contig, sequences uppercased.  No jax is
 imported.
+
+Each record's sequence stays bytes from the file to the codes
+(io/fasta.py::read_fasta): the device backend encodes it with one table
+lookup a byte that maps either case of ACGT to one code, and the host scan
+uppercases it with bytes.upper(), which maps ASCII letters alone, as the
+reference's C toupper does.  A byte outside ASCII is no longer case-mapped
+by Python's latin-1 rules, which the JAX package applies to its str (there
+'\xdf' became 'SS' and changed the contig's length).
 """
 
 import sys
@@ -22,7 +30,7 @@ import sys
 import torch
 
 from cornetto_tpu_torch.device import resolve_device
-from cornetto_tpu_torch.io.fasta import read_fastx
+from cornetto_tpu_torch.io.fasta import read_fasta, timed_reads
 from cornetto_tpu_torch.kernels.minimizer import encode_bytes
 from cornetto_tpu_torch.kernels.motif import revcomp_motif
 from cornetto_tpu_torch.kernels.telo import (scan_runs_from_positions,
@@ -52,12 +60,13 @@ def scan_runs(seq: bytes, motif: bytes):
 def run(fasta_path: str, motif: str = "TTAGGG", out=None,
         backend: str = "device", stats: dict = None) -> None:
     """stats: optional dict; the run adds its counts (contigs, bases,
-    positions read back) and its seconds per part to it: read (the FASTA
-    parse), encode (uppercase, and the codes on the device backend), h2d,
-    kernel, compact, readback, walk (the host scan on the host backend) and
-    output, synchronising the card at the end of each part.  Under a
-    profiler each part is the span ``telofind.<part>``, timed by the same
-    clock (utils.profiling.lap)."""
+    positions read back; records and squeezed, read_fasta's records and
+    those whose body held a line end) and its seconds per part to it: read
+    (the FASTA read), encode (the codes on the device backend, the
+    uppercase for the host scan), h2d, kernel, compact, readback, walk (the
+    host scan on the host backend) and output, synchronising the card at
+    the end of each part.  Under a profiler each part is the span
+    ``telofind.<part>``, timed by the same clock (utils.profiling.lap)."""
     out = out or sys.stdout
     rmotif = revcomp_motif(motif)
     dev = resolve_device() if backend == "device" else None
@@ -66,22 +75,20 @@ def run(fasta_path: str, motif: str = "TTAGGG", out=None,
     def lap(part):
         return profiling.lap("telofind." + part, stats, dev)
 
-    recs = read_fastx(fasta_path)
-    while True:
-        with lap("read"):
-            rec = next(recs, None)
-        if rec is None:
-            break
-        with lap("encode"):
-            # disambiguate: uppercase (reference :76-81)
-            seq = rec.seq.upper().encode("latin-1")
+    for rec in timed_reads(read_fasta(fasta_path), lambda: lap("read"),
+                           stats):
+        name, seq = rec.name.decode("latin-1"), rec.seq
         L = len(seq)
-        codes = None
+        codes = upper = None
         for strand, m in ((0, motif), (1, rmotif)):
             mb = m.encode("latin-1")
             if backend != "device" or not set(mb) <= set(b"ACGT"):
+                if upper is None:
+                    with lap("encode"):
+                        # disambiguate: uppercase (reference :76-81)
+                        upper = seq.upper()
                 with lap("walk"):
-                    runs = list(scan_runs(seq, mb))
+                    runs = list(scan_runs(upper, mb))
             else:
                 if codes is None:       # one upload serves both strands
                     with lap("encode"):
@@ -97,7 +104,7 @@ def run(fasta_path: str, motif: str = "TTAGGG", out=None,
                     runs = scan_runs_from_positions(pos, len(mb), L)
             with lap("output"):
                 out.write("".join("%s\t%d\t%d\t%d\t%d\t%d\n"
-                                  % (rec.name, L, strand, st, end, ln)
+                                  % (name, L, strand, st, end, ln)
                                   for st, end, ln in runs))
         acc["contigs"] = acc.get("contigs", 0) + 1
         acc["bases"] = acc.get("bases", 0) + L

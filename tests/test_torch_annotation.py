@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -230,6 +231,98 @@ def test_telofind_motif_case_matches_jax_cli(cpu, tmp_path, motif):
         rc, out, err = _cli(["telofind", str(fa), motif] + backend)
         assert rc == 0, err
         assert out == want
+
+
+def _jax_cli(argv):
+    from cornetto_tpu.cli import main as jax_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert jax_main(["cornetto"] + argv) == 0
+    return out.getvalue()
+
+
+def _write_fasta(path, recs, width, eol):
+    """recs ((header, seq) pairs) as a FASTA of `width` bases a line (0:
+    one line a record) and `eol` line ends."""
+    with open(path, "w", newline="") as f:
+        for header, seq in recs:
+            w = width or max(len(seq), 1)
+            f.write(">" + header + eol + "".join(
+                seq[i:i + w] + eol for i in range(0, len(seq), w)))
+    return path
+
+
+def _run_tool(tool, path, backend, motif=None):
+    """tools.<tool>.run's rows and stats."""
+    import importlib
+    mod = importlib.import_module("cornetto_tpu_torch.tools." + tool)
+    out, stats = io.StringIO(), {}
+    kw = {} if motif is None else {"motif": motif}
+    mod.run(str(path), out=out, backend=backend, stats=stats, **kw)
+    return out.getvalue(), stats
+
+
+ANNOTATION_RUNS = [("sdust", "device", "sdust.txt"),
+                   ("telofind", "device", "telofind.txt"),
+                   ("telofind", "host", "telofind.txt")]
+
+
+@pytest.mark.parametrize("width,eol", [(0, "\n"), (60, "\r\n")],
+                         ids=["one-line", "60-col-crlf"])
+@pytest.mark.parametrize("tool,backend,golden", ANNOTATION_RUNS)
+def test_annotation_rows_on_other_fasta_layouts(cpu, synth, gold, tmp_path,
+                                                width, eol, tool, backend,
+                                                golden):
+    """The synthetic assembly written again one line a contig, or 60 bases
+    a CRLF line: sdust on the device, telofind on the device and on the
+    host walk give the golden rows and the JAX CLI's; the FASTA read counts
+    its records and squeezes only those with a line end inside the body."""
+    from cornetto_tpu.io.fasta import read_fastx as jax_read_fastx
+    recs = [(r.name if r.comment is None else r.name + " " + r.comment,
+             r.seq) for r in jax_read_fastx(str(synth / "asm.fasta"))]
+    fa = _write_fasta(tmp_path / "asm.fa", recs, width, eol)
+    rows, stats = _run_tool(tool, fa, backend)
+    assert rows == (gold / golden).read_text()
+    assert rows == _jax_cli([tool, str(fa)])
+    assert stats["records"] == len(recs) == 4
+    assert stats["squeezed"] == sum(width and len(s) > width
+                                    for _, s in recs)
+
+
+def _mixed_case_records():
+    """Two contigs in both cases with N runs (N and n), telomere arrays,
+    TTNGGG repeats and low-complexity stretches."""
+    rng = np.random.default_rng(29)
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGTacgt"), n))
+    return [("m1", "ttaggg" * 6 + "TTAggg" * 4 + rand(300) + "N" * 40
+             + rand(200) + "cacacaCACA" * 12 + rand(150) + "nnnnNNNN" * 3
+             + rand(250) + "TTNGGGttnggg" * 3 + rand(100) + "CCCTAA" * 5
+             + "ccctaa" * 5),
+            ("m2 second", rand(120) + "n" * 70 + "atATatAT" * 15 + rand(400)
+             + "TTAGGG" * 8 + rand(90) + "Nn" * 10 + "ttagggTTAGGG" * 3)]
+
+
+@pytest.mark.parametrize("width,eol", [(0, "\n"), (70, "\r\n")],
+                         ids=["one-line", "70-col-crlf"])
+@pytest.mark.parametrize("tool,backend,motif", [
+    ("sdust", "device", None),
+    ("telofind", "device", "TTAGGG"), ("telofind", "host", "TTAGGG"),
+    ("telofind", "device", "TTNGGG"), ("telofind", "host", "TTNGGG"),
+    ("telofind", "device", "ccctaa")])
+def test_annotation_rows_on_mixed_case_with_n_runs(cpu, tmp_path, width, eol,
+                                                   tool, backend, motif):
+    """Mixed-case sequence with N runs: the port's rows are the JAX CLI's,
+    on the device paths and the host walk, for an ACGT motif, one with an
+    N (the host walk on either backend) and a lowercase one (no rows)."""
+    fa = _write_fasta(tmp_path / "m.fa", _mixed_case_records(), width, eol)
+    rows, stats = _run_tool(tool, fa, backend, motif)
+    argv = [tool, str(fa)] + ([] if motif is None else [motif])
+    assert rows == _jax_cli(argv)
+    assert (rows != "") == (motif != "ccctaa")
+    assert stats["records"] == 2 and stats["squeezed"] == (2 if width else 0)
 
 
 @pytest.mark.parametrize("golden,args", [

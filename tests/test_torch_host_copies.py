@@ -158,6 +158,86 @@ def test_fasta_reader_equal(synth, tmp_path):
         assert got == want and got
 
 
+def _wrap(seq: str, width: int, eol: str = "\n") -> str:
+    return "".join(seq[i:i + width] + eol for i in range(0, len(seq), width))
+
+
+_SEQ = "".join(np.random.default_rng(7).choice(list("ACGTNacgtn"), 1000))
+
+# text, the reader's CHUNK, gzip, each record's squeezed
+FASTA_BYTES_CASES = {
+    "one-line": (">c1 x y\n%s\n>c2\nACGT\n" % _SEQ, 1 << 20, False,
+                 [False, False]),
+    "60-col": (">c1\n" + _wrap(_SEQ, 60) + ">c2 d\n" + _wrap(_SEQ[:50], 60),
+               1 << 20, False, [True, False]),
+    "80-col": (">c1\n" + _wrap(_SEQ, 80) + ">c2\n" + _wrap(_SEQ[:200], 80),
+               1 << 20, False, [True, True]),
+    "crlf": (">c1 d\r\n" + _wrap(_SEQ, 60, "\r\n") + ">c2\r\nACGT\r\n",
+             1 << 20, False, [True, False]),
+    "empty-record": (">a\nAC\n>\n>b\nGT\n", 1 << 20, False,
+                     [False, False, False]),
+    "header-no-body": (">a desc\n>b\tx\nACGT\n>c\n", 1 << 20, False,
+                       [False, False, False]),
+    "header-no-newline-at-eof": (">a\nACGT\n>b comment", 1 << 20, False,
+                                 [False, False]),
+    "gt-ends-the-file": (">a\nACGT\n>", 1 << 20, False, [True]),
+    # the first read ends on the '\n' of '\n>', the next starts on the '>'
+    "straddle": (">a\nACGTACG\n>b\nTT\n", 10, False, [False, False]),
+    "longer-than-chunk": (">a\n%s\n>b\n%s" % (_SEQ, _wrap(_SEQ, 60)), 64,
+                          False, [False, True]),
+    "gzip": (">a desc\nACGT\nNNac\n>b\n\n>c x\n%s\n" % _SEQ, 64, True,
+             [True, False, False]),
+    "fastq": ("@r1 c\nACGT\n+\nIIII\n@r2\nGG\n+\nII\n", 1 << 20, False,
+              [True, True]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FASTA_BYTES_CASES))
+def test_fasta_bytes_reader_equal(tmp_path, monkeypatch, case):
+    """read_fasta's records, decoded, are read_fastx's and the JAX
+    package's, record for record; only a body with a line end inside it is
+    squeezed (a second copy)."""
+    import gzip
+    text, chunk, gz, squeezed = FASTA_BYTES_CASES[case]
+    path = tmp_path / ("x.fa.gz" if gz else "x.fa")
+    path.write_bytes(gzip.compress(text.encode()) if gz else text.encode())
+    monkeypatch.setattr(fasta, "CHUNK", chunk)
+    want = [(r.name, r.comment, r.seq)
+            for r in jax_fasta.read_fastx(str(path))]
+    recs = list(fasta.read_fasta(str(path)))
+    assert all(type(x) is bytes for r in recs for x in r[:3]
+               if x is not None)
+    assert [(r.name.decode(), None if r.comment is None
+             else r.comment.decode(), r.seq.decode()) for r in recs] == want
+    assert [(r.name, r.comment, r.seq)
+            for r in fasta.read_fastx(str(path))] == want
+    assert [r.squeezed for r in recs] == squeezed
+
+
+def test_fasta_bytes_reader_equal_on_random_text(tmp_path, monkeypatch):
+    """Seeded random texts of headers, bases, '>', '\\n', '\\r', spaces
+    and tabs, read in reads of 1-64 bytes: read_fasta and read_fastx give
+    the JAX package's records."""
+    rng = np.random.default_rng(23)
+    path = tmp_path / "r.fa"
+    n = 0
+    for _ in range(400):
+        body = "".join(rng.choice(list(">>\n\n\n\rAcgN \t"),
+                                  rng.integers(0, 40)))
+        path.write_bytes((">" + body).encode())
+        monkeypatch.setattr(fasta, "CHUNK", int(rng.choice([1, 2, 3, 7, 64])))
+        want = [(r.name, r.comment, r.seq)
+                for r in jax_fasta.read_fastx(str(path))]
+        got = [(r.name.decode(), None if r.comment is None
+                else r.comment.decode(), r.seq.decode())
+               for r in fasta.read_fasta(str(path))]
+        assert got == want, body
+        assert [(r.name, r.comment, r.seq)
+                for r in fasta.read_fastx(str(path))] == want, body
+        n += len(want)
+    assert n > 400
+
+
 def test_bed_readers_equal(synth, tmp_path):
     p = synth / "asm.bp.p_ctg.lowQ.bed"
     assert list(bed.read_bed3(str(p))) == list(jax_bed.read_bed3(str(p)))

@@ -230,7 +230,7 @@ def test_index_build_spans(cpu):
 
 # ---- the annotation tools' laps ------------------------------------------
 
-SDUST_PARTS = ("plan", "h2d", "kernel", "readback", "overflow",
+SDUST_PARTS = ("read", "plan", "h2d", "kernel", "readback", "overflow",
                "host_spans", "assemble")
 TELOFIND_PARTS = ("read", "encode", "h2d", "kernel", "compact", "readback",
                   "walk", "output")
@@ -277,6 +277,9 @@ def test_annotation_laps_are_spans(small_fasta, tool, parts):
     for p in parts:
         assert t[tool + "." + p]["calls"] >= 1, p
         assert stats[p] >= 0
+    # one one-line record: read, and not squeezed
+    assert t[tool + ".read"]["counts"] == {"records": 1, "squeezed": 0}
+    assert stats["records"] == 1 and stats["squeezed"] == 0
 
 
 def test_cli_under_cornetto_profile_writes_the_spans(small_fasta,
